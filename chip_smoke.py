@@ -1,0 +1,395 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA card and check it end to end.
+
+Run from the root of a checkout on a machine with a CUDA card::
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero before the result line):
+
+  1. build -- compile ``src/repro_torch/kernels/csrc/*.cu`` with nvcc for
+     sm_90a (one nvcc per source, in parallel) and print ptxas's
+     register/shared-memory lines and the build seconds;
+  2. kernels -- call each kernel's wrapper on card tensors at the §7
+     shapes (S = 20 servers, N ~ 300 GPUs of ``philly_cluster(20,
+     seed=1)``, B = C = 64 rows, J = 161 stack rows) and require
+     ``torch.equal`` with its plain PyTorch version on the same inputs;
+     time both with CUDA events;
+  3. end to end -- ``run_scenario(..., device="cuda")`` on the §7 Philly
+     setting (160 jobs) for {homogeneous, heterogeneous} x {incremental,
+     batched}, each held bitwise against the port's ``device="cpu"`` run
+     with the reference defaults; then the |J| = 1024 scale point (32
+     servers, homogeneous, batched engine) held the same way.  The kernel
+     launch counters are zeroed before each run and every kernel that run
+     reaches must have launched.
+
+The last lines are the per-kernel JSON summary, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+FP64_OPS_PER_S = 34e12         # H100 SXM FP64 outside the tensor cores
+# The §7 heterogeneous variant: two speed tiers, shared vs isolated uplinks.
+HETERO = dict(speed_tiers=((50.0, 0.5), (12.5, 0.5)),
+              link_classes=((1.25, "shared", 0.5), (1.25, "isolated", 0.5)))
+PHILLY_MIX = ((1, 80), (2, 14), (4, 26), (8, 30), (16, 8), (32, 2))
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def mix_for(total: int) -> tuple[tuple[int, int], ...]:
+    """The §7 Philly mix (160 jobs) scaled to ``total`` jobs, keeping the
+    job-size shares; the remainder lands on the largest fractional parts."""
+    base = sum(c for _, c in PHILLY_MIX)
+    exact = [(g, total * c / base) for g, c in PHILLY_MIX]
+    counts = [int(x) for _, x in exact]
+    order = sorted(range(len(exact)), key=lambda i: exact[i][1] - counts[i],
+                   reverse=True)
+    for i in order[: total - sum(counts)]:
+        counts[i] += 1
+    return tuple((g, c) for (g, _), c in zip(exact, counts) if c > 0)
+
+
+def time_ms(torch, fn, reps: int = 200) -> float:
+    """Mean ms per call of ``fn`` on the card: CUDA events around ``reps``
+    back-to-back calls, queued behind a sleep kernel so that host enqueue
+    gaps do not count where the calls do not synchronise."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_phase(torch, np, rt, dev) -> list[dict]:
+    """Each kernel against its plain version at the §7 shapes."""
+    from repro_torch.core.contention import _job_terms
+    from repro_torch.kernels import placement, tau
+
+    rng = np.random.default_rng(1)
+    hom = rt.philly_cluster(20, seed=1)
+    het = rt.philly_cluster(20, seed=1, **HETERO)
+    jobs = rt.philly_workload(seed=1)
+    S, N = hom.num_servers, hom.num_gpus
+    C, B = 64, 64
+
+    def put(a, dtype):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    # A columnar batched-engine stack: per candidate, the 160 placed jobs
+    # in its own row order plus the probed candidate row (J = 161), each
+    # on a random GPU set; per-candidate [C, J] terms.
+    G, share, compute = _job_terms(jobs)
+    J = len(jobs) + 1
+    Y = np.zeros((C, J, S), dtype=np.int64)
+    G2 = np.zeros((C, J), dtype=np.int64)
+    sh2, cp2 = np.zeros((C, J)), np.zeros((C, J))
+    for c in range(C):
+        perm = np.concatenate([rng.permutation(len(jobs)),
+                               [rng.integers(len(jobs))]])
+        for r, j in enumerate(perm):
+            gpus = rng.choice(N, size=G[j], replace=False)
+            Y[c, r] = np.bincount(hom.gpu_server[gpus], minlength=S)
+        G2[c], sh2[c], cp2[c] = G[perm], share[perm], compute[perm]
+    stack = (put(Y, torch.int64), put(G2, torch.int64),
+             put(sh2, torch.float64), put(cp2, torch.float64))
+    stack_in = Y.nbytes + G2.nbytes + sh2.nbytes + cp2.nbytes
+    stack_out = C * J * 3 * 8
+    tau_ops = C * J * S * 6 + C * J * 14
+    scal = dict(xi1=hom.xi1, xi2=hom.xi2, alpha=hom.alpha,
+                b_intra=hom.b_intra)
+    het_t = tau.cluster_tensors(het, dev)
+    het_terms = (het_t["speed_floor"], het_t["uplink_sh"],
+                 het_t["uplink_iso"])
+    hom_kw = dict(scal, b_inter=hom.b_inter, gpu_speed=hom.gpu_speed)
+
+    # Pool statistics over B work rows of busy-time clocks (idle GPUs
+    # included, so equal loads tie).
+    U = np.round(rng.uniform(0, 400, size=(B, N)), 3)
+    U[:, rng.choice(N, size=N // 3, replace=False)] = 0.0
+    th_lo = np.sort(rng.uniform(100, 700, size=B))
+    ct = tau.cluster_tensors(hom, dev)
+    pool_args = (put(U, torch.float64), put(th_lo, torch.float64),
+                 put(th_lo + rng.uniform(0, 50, size=B), torch.float64),
+                 put(rng.uniform(5, 150, size=B), torch.float64), 8,
+                 ct["offsets"], ct["caps"])
+    pool_in = U.nbytes + 3 * B * 8 + 2 * S * 8
+    pool_out = B * N * 8 + 2 * B * 8 + 2 * B * S * 8 + B * 8 + B
+    pool_ops = B * N * 4 + B * N * 3
+
+    # Probe scoring of B candidate rows of an 8-GPU job.
+    Yp = np.stack([np.bincount(het.gpu_server[rng.choice(N, 8, False)],
+                               minlength=S) for _ in range(B)])
+    p = rng.integers(0, 8, size=B).astype(np.float64)
+    k = np.maximum(het.xi1 * p, 1.0)
+    f = k + het.alpha * (k - 1.0)
+    job = jobs[0]
+    w = float(job.num_gpus)
+    sh_j = (job.grad_size / w) * (w - 1.0) if w > 1 else 0.0
+    score_args = (put(Yp, torch.int64), put(f, torch.float64),
+                  put(het.xi2 * (Yp > 0).sum(axis=1), torch.float64),
+                  put([2.0 * sh_j, sh_j, sh_j / het.gpu_speed,
+                       job.dt_fwd * job.batch + job.dt_bwd,
+                       float(job.iters)], torch.float64), *het_terms)
+    score_kw = dict(hetero=True, b_inter=het.b_inter, b_intra=het.b_intra)
+    score_in = Yp.nbytes + 2 * B * 8 + 5 * 8 + 3 * S * 8
+
+    cases = [
+        ("tau", "tau_stack_hom", "kernels/tau.py:75",
+         lambda: tau.tau_stack_hom(*stack, **hom_kw),
+         lambda: tau.tau_stack_hom_plain(*stack, **hom_kw),
+         stack_in, stack_out, tau_ops),
+        ("tau_het", "tau_stack_het", "kernels/tau.py:40",
+         lambda: tau.tau_stack_het(*stack, *het_terms, **scal),
+         lambda: tau.tau_stack_het_plain(*stack, *het_terms, **scal),
+         stack_in + 3 * S * 8, stack_out, tau_ops + C * J * S * 3),
+        ("pool", "pool_stats", "kernels/placement.py:195",
+         lambda: placement.pool_stats(*pool_args),
+         lambda: placement.pool_stats_plain(*pool_args),
+         pool_in, pool_out, pool_ops),
+        ("score", "score_rows", "kernels/placement.py:212",
+         lambda: placement.score_rows(*score_args, **score_kw),
+         lambda: placement.score_rows_plain(*score_args, **score_kw),
+         score_in, 2 * B * 8, B * S * 4 + B * 12),
+    ]
+    rows = []
+    for name, fn, replaces, kern, plain, n_in, n_out, n_ops in cases:
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"kernel {name} disagrees with its plain version")
+        err = max((float((g.double() - w.double()).abs().max())
+                   for g, w in zip(got, want)
+                   if g.is_floating_point() and g.numel()), default=0.0)
+        ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
+        bytes_ms = (n_in + n_out) / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_ops / FP64_OPS_PER_S * 1e3
+        source = ("src/repro_torch/kernels/csrc/tau.cu" if name.startswith(
+            "tau") else "src/repro_torch/kernels/csrc/placement.cu")
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": f"src/repro/{replaces}", "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "bytes": n_in + n_out, "entry": fn,
+            "equal": True})
+        print(f"kernel {name}: torch.equal to plain, max_abs_err {err}, "
+              f"{ms:.6f} ms/launch, plain {plain_ms:.6f} ms, bytes "
+              f"{n_in + n_out}, bound {max(bytes_ms, ops_ms):.6f} ms",
+              flush=True)
+    return rows
+
+
+def time_entry_points() -> dict:
+    """Wrap the port's kernel-backed entry points (``pick_orders``,
+    ``score_probes``, ``tau_stack``) in place so that each call adds its
+    host wall seconds -- copies to and from the card, launches and the
+    waits on their results -- to the returned dict.  The callers look the
+    functions up on their modules at call time, so the wrapped versions
+    are the ones the main path runs."""
+    from repro_torch.kernels import placement, tau
+    spent = {}
+    for mod, name in ((placement, "pick_orders"), (placement, "score_probes"),
+                      (tau, "tau_stack")):
+        spent[name] = 0.0
+
+        def timed(*args, _fn=getattr(mod, name), _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                spent[_name] += time.perf_counter() - t0
+
+        setattr(mod, name, timed)
+    return spent
+
+
+def device_profile(torch, rt, spec, wall_s: float) -> None:
+    """Device busy time of one more card run of ``spec`` under
+    torch.profiler (CUDA activity only), against the unprofiled wall
+    seconds ``wall_s`` of the same run: the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rt.run_scenario(spec, device="cuda")
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0), reverse=True)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    if not rows:
+        print("device profile: the profiler recorded no device time "
+              "(not measured)")
+        return
+    print(f"device profile of the §7 homogeneous batched run: device busy "
+          f"{busy_s:.6f} s of {wall_s:.6f} s wall, idle share "
+          f"{1.0 - busy_s / wall_s:.6f}", flush=True)
+    for us, count, key in rows[:8]:
+        print(f"  device {us / 1e3:.3f} ms in {count} x {key[:70]}")
+
+
+def same_schedule(a, b) -> bool:
+    return (a.theta == b.theta and a.kappa == b.kappa
+            and a.est_makespan == b.est_makespan
+            and a.max_busy_time == b.max_busy_time
+            and len(a.assignment) == len(b.assignment)
+            and all(j1 == j2 and bool((g1 == g2).all())
+                    for (j1, g1), (j2, g2) in zip(a.assignment, b.assignment))
+            and bool((a.est_start == b.est_start).all())
+            and bool((a.est_finish == b.est_finish).all()))
+
+
+def end_to_end_phase(torch, rt, kernels, totals: dict) -> None:
+    """§7 runs and the scale point, each on the card vs on the CPU."""
+    from repro_torch.core.contention import tau_backend
+
+    spent = time_entry_points()
+    walls = {}
+    expect = {("hom", "incremental"): ("pool",),
+              ("hom", "batched"): ("pool", "tau"),
+              ("het", "incremental"): ("pool", "score"),
+              ("het", "batched"): ("pool", "tau_het")}
+    for (kind, engine), needs in expect.items():
+        spec = rt.Scenario(
+            cluster=rt.ClusterSpec(num_servers=20, seed=1,
+                                   **(HETERO if kind == "het" else {})),
+            workload=rt.WorkloadSpec(seed=1), policy="sjf-bco",
+            policy_params=(("engine", engine),), horizon=1200)
+        kernels.reset_launch_counts()
+        spent.update(dict.fromkeys(spent, 0.0))
+        t0 = time.perf_counter()
+        card = rt.run_scenario(spec, device="cuda")
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        in_kernels = dict(spent)
+        walls[(kind, engine)] = (spec, t_card)
+        t0 = time.perf_counter()
+        host = rt.run_scenario(spec, device="cpu")
+        t_host = time.perf_counter() - t0
+        label = f"§7 {kind} {engine}"
+        if not same_schedule(card.schedule, host.schedule):
+            fail(f"{label}: the card's schedule differs from the CPU's")
+        if (card.sim.makespan, card.sim.avg_jct) != \
+                (host.sim.makespan, host.sim.avg_jct):
+            fail(f"{label}: the card's simulation differs from the CPU's")
+        for name in needs:
+            if counts[name] <= 0:
+                fail(f"{label}: kernel {name} was never launched")
+        for name, n in counts.items():
+            totals[name] += n
+        print(f"{label}: bitwise equal to the CPU run; theta "
+              f"{card.schedule.theta} kappa {card.schedule.kappa} makespan "
+              f"{card.sim.makespan} avg_jct {card.sim.avg_jct}; card "
+              f"{t_card:.3f} s, cpu {t_host:.3f} s; launches {counts}",
+              flush=True)
+        print(f"  card run host seconds inside the kernel entry points "
+              f"{ {k: round(v, 6) for k, v in in_kernels.items()} }, "
+              f"elsewhere {t_card - sum(in_kernels.values()):.6f}",
+              flush=True)
+
+    cluster = rt.philly_cluster(32, seed=1)
+    jobs = rt.philly_workload(seed=1, mix=mix_for(1024))
+    base = dict(cluster=cluster, jobs=jobs, horizon=1200)
+    kernels.reset_launch_counts()
+    spent.update(dict.fromkeys(spent, 0.0))
+    t0 = time.perf_counter()
+    with tau_backend("kernel", "cuda"):
+        card = rt.get_policy("sjf-bco")(rt.ScheduleRequest(**base, params={
+            "engine": "batched", "placement": "columnar",
+            "columnar_backend": "kernel", "device": "cuda"}))
+    card_sim = rt.simulate(cluster, jobs, card.assignment)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    in_kernels = dict(spent)
+    t0 = time.perf_counter()
+    host = rt.get_policy("sjf-bco")(rt.ScheduleRequest(**base))
+    host_sim = rt.simulate(cluster, jobs, host.assignment)
+    t_host = time.perf_counter() - t0
+    if not same_schedule(card, host) or \
+            (card_sim.makespan, card_sim.avg_jct) != \
+            (host_sim.makespan, host_sim.avg_jct):
+        fail("scale point: the card's run differs from the CPU's")
+    for name in ("pool", "tau"):
+        if counts[name] <= 0:
+            fail(f"scale point: kernel {name} was never launched")
+    for name, n in counts.items():
+        totals[name] += n
+    print(f"scale |J|={len(jobs)} S={cluster.num_servers} batched: bitwise "
+          f"equal to the CPU run; theta {card.theta} kappa {card.kappa} "
+          f"makespan {card_sim.makespan}; card {t_card:.3f} s, cpu "
+          f"{t_host:.3f} s; launches {counts}", flush=True)
+    print(f"  card run host seconds inside the kernel entry points "
+          f"{ {k: round(v, 6) for k, v in in_kernels.items()} }, "
+          f"elsewhere {t_card - sum(in_kernels.values()):.6f}", flush=True)
+    device_profile(torch, rt, *walls[("hom", "batched")])
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    if not (ROOT / "src" / "repro_torch" / "__init__.py").exists():
+        fail("src/repro_torch is missing: run from the root of a checkout")
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    import repro_torch
+    import repro_torch.core as rt
+    from repro_torch import kernels
+    from repro_torch.kernels import _build
+    if Path(repro_torch.__file__).resolve().parents[1] != ROOT / "src":
+        fail(f"imported repro_torch from {repro_torch.__file__}")
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}; card: {smi}", flush=True)
+
+    seconds = _build.build()
+    for name, log in _build.BUILD_LOGS.items():
+        for line in log.splitlines():
+            if any(w in line.lower() for w in ("ptxas", "spill", "error")):
+                print(f"nvcc {name}.cu: {line.strip()}")
+    print(f"build: {len(_build.BUILD_LOGS)} sources in {seconds:.3f} s",
+          flush=True)
+
+    dev = repro_torch.resolve_device("cuda")
+    rows = kernel_phase(torch, np, rt, dev)
+    totals = dict.fromkeys(kernels.LAUNCHES, 0)
+    end_to_end_phase(torch, rt, kernels, totals)
+    for row in rows:
+        row["launches"] = totals[row["name"]]
+        if row["launches"] <= 0:
+            fail(f"kernel {row['name']} never ran on the main path")
+
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,34 @@
+"""Hand-written CUDA kernels of the scheduler path, for Hopper (sm_90a).
+
+Each kernel sits behind a wrapper that checks its tensors (device,
+float64/int64 dtype, shape, contiguity) and then either launches the
+kernel (CUDA tensors) or runs the plain PyTorch version that sits beside
+it in the same module (CPU tensors).  There is no fallback: a CUDA tensor
+whose kernel fails to build or launch raises.
+
+  * :mod:`repro_torch.kernels.tau` -- ``tau`` / ``tau_het``: the Eq. (6)-(8)
+    candidate-stack reduction behind ``contention.stack_model``;
+  * :mod:`repro_torch.kernels.placement` -- ``pool`` / ``score``: the
+    columnar placement step's pool statistics and probe scoring.
+
+:data:`LAUNCHES` counts kernel launches per kernel (a wrapper adds one
+where it launches, and nowhere else), so a run can show that it went
+through the kernels.
+"""
+from __future__ import annotations
+
+__all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts"]
+
+#: Kernel launches since the last :func:`reset_launch_counts`.
+LAUNCHES = {"tau": 0, "tau_het": 0, "pool": 0, "score": 0}
+
+
+def launch_counts() -> dict[str, int]:
+    """Snapshot of the per-kernel launch counters."""
+    return dict(LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    """Zero every kernel launch counter."""
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0

@@ -1,0 +1,225 @@
+"""The port's kernel modules against the JAX reference, bit for bit.
+
+Each module of :mod:`repro_torch.kernels` is fed the same NumPy inputs as
+its counterpart in :mod:`repro.kernels` (carried across through
+:func:`repro_torch.convert.from_reference`) and must agree with
+``np.array_equal`` in float64 -- the reference's own engine contract, no
+tolerance:
+
+  * ``tau_stack`` (CPU: the plain PyTorch versions of the tau kernels)
+    against the reference's Pallas kernel in x64 interpret mode and its
+    NumPy ``evaluate_many``, homogeneous and heterogeneous, [J] and
+    [C, J] terms;
+  * ``pick_orders`` / ``score_probes`` against the reference's Pallas
+    path (``use_kernel=True``, dispatch threshold forced to 0) and its
+    NumPy fallback, fuzzed over random clock states.
+
+``tests/test_torch_gpu.py`` holds each CUDA kernel against its plain
+version on the card.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.kernels.placement as ref_kp
+from repro.core import philly_cluster as ref_philly_cluster
+from repro.core import philly_workload as ref_philly_workload
+from repro.core.contention import _job_terms as ref_job_terms
+from repro.core.contention import evaluate_many as ref_evaluate_many
+from repro.kernels.tau import tau_stack as ref_tau_stack
+from repro_torch.convert import from_reference
+from repro_torch.core.contention import evaluate_many, tau_backend
+from repro_torch.kernels import launch_counts, placement, tau
+
+HETERO = dict(speed_tiers=((50.0, 0.5), (12.5, 0.5)),
+              link_classes=((1.25, "shared", 0.5), (1.25, "isolated", 0.5)))
+
+
+@pytest.fixture
+def x64():
+    """The reference's kernel paths compute in float64 only under x64."""
+    was = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", was)
+
+
+def _carry(ref_cluster, ref_jobs):
+    return from_reference(ref_cluster.to_payload(),
+                          [dataclasses.asdict(j) for j in ref_jobs])
+
+
+def _tau_case(seed, hetero, n_cands=6):
+    """A 6-server Philly cluster, 14 jobs and a random candidate stack."""
+    rng = np.random.default_rng(seed)
+    cluster = ref_philly_cluster(6, seed=seed, **(HETERO if hetero else {}))
+    jobs = ref_philly_workload(seed=seed, mix=((1, 4), (2, 4), (4, 4),
+                                               (8, 2)))
+    S = cluster.num_servers
+    stack = np.zeros((n_cands, len(jobs), S), dtype=np.int64)
+    for c in range(n_cands):
+        for i, job in enumerate(jobs):
+            for _ in range(job.num_gpus):
+                stack[c, i, rng.integers(S)] += 1
+    return cluster, jobs, stack
+
+
+def _per_candidate_terms(rng, stack, G, share, compute):
+    """The columnar [C, J] layout: each candidate holds its own row order
+    plus zero padding rows (G = 0, share = 0, compute = 1)."""
+    C, J, S = stack.shape
+    pad = 3
+    Y = np.zeros((C, J + pad, S), dtype=np.int64)
+    G2 = np.zeros((C, J + pad), dtype=np.int64)
+    sh2 = np.zeros((C, J + pad))
+    cp2 = np.ones((C, J + pad))
+    for c in range(C):
+        perm = rng.permutation(J)
+        Y[c, :J] = stack[c, perm]
+        G2[c, :J], sh2[c, :J], cp2[c, :J] = G[perm], share[perm], \
+            compute[perm]
+    return Y, G2, sh2, cp2
+
+
+class TestTauStack:
+    """K1/K2: the plain versions against the reference kernel and NumPy."""
+
+    @pytest.mark.parametrize("seed", [0, 3])
+    @pytest.mark.parametrize("hetero", [False, True])
+    @pytest.mark.parametrize("terms_2d", [False, True])
+    def test_matches_reference_kernel(self, seed, hetero, terms_2d, x64):
+        ref_cluster, ref_jobs, stack = _tau_case(seed, hetero)
+        cluster, _ = _carry(ref_cluster, ref_jobs)
+        G, share, compute = ref_job_terms(ref_jobs)
+        if terms_2d:
+            stack, G, share, compute = _per_candidate_terms(
+                np.random.default_rng(seed + 100), stack, G, share, compute)
+        want = ref_tau_stack(ref_cluster, G, share, compute, stack)
+        before = launch_counts()
+        got = tau.tau_stack(cluster, G, share, compute, stack, device="cpu")
+        assert launch_counts() == before     # CPU tensors launch nothing
+        for w, g in zip(want, got):
+            assert g.dtype == w.dtype
+            assert np.array_equal(w, g)
+
+    @pytest.mark.parametrize("seed", [1, 3])
+    @pytest.mark.parametrize("hetero", [False, True])
+    def test_kernel_backend_matches_numpy_engines(self, seed, hetero):
+        """The port's stack_model under tau_backend("kernel") equals the
+        reference's NumPy evaluate_many on every IterModel field."""
+        ref_cluster, ref_jobs, stack = _tau_case(seed, hetero)
+        cluster, jobs = _carry(ref_cluster, ref_jobs)
+        want = ref_evaluate_many(ref_cluster, ref_jobs, stack)
+        with tau_backend("kernel", device="cpu"):
+            got = evaluate_many(cluster, jobs, stack)
+        for field in dataclasses.fields(want):
+            assert np.array_equal(getattr(want, field.name),
+                                  getattr(got, field.name)), field.name
+
+    def test_wrapper_rejects_bad_tensors(self):
+        Y = torch.zeros((2, 3, 4), dtype=torch.int64)
+        G = torch.ones(3, dtype=torch.int64)
+        f64 = torch.zeros(3, dtype=torch.float64)
+        kw = dict(xi1=0.7, xi2=0.002, alpha=0.3, b_inter=1.25,
+                  b_intra=300.0, gpu_speed=50.0)
+        with pytest.raises(TypeError, match="dtype"):
+            tau.tau_stack_hom(Y.to(torch.int32), G, f64, f64, **kw)
+        with pytest.raises(ValueError, match="shape"):
+            tau.tau_stack_hom(Y, G, torch.zeros(4, dtype=torch.float64),
+                              f64, **kw)
+        with pytest.raises(ValueError, match="contiguous"):
+            tau.tau_stack_hom(Y.transpose(0, 2).contiguous().transpose(0, 2),
+                              G, f64, f64, **kw)
+
+
+def _pick_case(seed, hetero):
+    cluster = ref_philly_cluster(6, seed=seed, **(HETERO if hetero else {}))
+    jobs = ref_philly_workload(seed=seed, mix=((1, 4), (2, 2), (4, 3),
+                                               (8, 2), (16, 1)))
+    return cluster, jobs
+
+
+class TestPickOrders:
+    """K3: pool statistics + host rankings, fuzzed over clock states."""
+
+    @pytest.mark.parametrize("seed", [5, 6])
+    def test_matches_reference_kernel_and_numpy(self, seed, x64,
+                                                monkeypatch):
+        ref_cluster, ref_jobs = _pick_case(seed, hetero=seed % 2 == 1)
+        cluster, jobs = _carry(ref_cluster, ref_jobs)
+        N = cluster.num_gpus
+        rng = np.random.default_rng(seed)
+        for trial in range(10):
+            i = int(rng.integers(len(jobs)))
+            nw = int(rng.integers(1, 20))
+            U = np.round(rng.uniform(0, 30, size=(nw, N)), 3)
+            if trial % 3 == 0:
+                U[:, : N // 2] = 0.0          # idle GPUs: exact-tie loads
+            th_lo = np.sort(rng.uniform(5, 40, size=nw))
+            th_hi = th_lo + rng.uniform(0, 10, size=nw)
+            rho_u = rng.uniform(0.5, 20, size=nw)
+            pid = rng.integers(0, 2, size=nw)
+            got = placement.pick_orders(cluster, U.copy(), th_lo, th_hi,
+                                        rho_u, pid, jobs[i], device="cpu")
+            monkeypatch.setattr(ref_kp, "DISPATCH_MIN_ROWS", 10**9)
+            want_np = ref_kp.pick_orders(ref_cluster, U.copy(), th_lo,
+                                         th_hi, rho_u, pid, ref_jobs[i])
+            monkeypatch.setattr(ref_kp, "DISPATCH_MIN_ROWS", 0)
+            want_k = ref_kp.pick_orders(ref_cluster, U.copy(), th_lo, th_hi,
+                                        rho_u, pid, ref_jobs[i],
+                                        use_kernel=True)
+            for a, b, c in zip(want_np, want_k, got):
+                assert np.array_equal(np.asarray(a), c), f"trial {trial}"
+                assert np.array_equal(np.asarray(b), c), f"trial {trial}"
+
+    def test_pool_stats_plain_tie_breaks(self):
+        """best_srv is the first index among equal (slots left, -load);
+        with no server fitting it is 0 and has_fit is False."""
+        caps = torch.tensor([4, 4, 4], dtype=torch.int64)
+        offsets = torch.tensor([0, 4, 8], dtype=torch.int64)
+        U = torch.zeros((2, 12), dtype=torch.float64)
+        U[0, 4:] = 1.0                        # servers 1 and 2 tie on load
+        th = torch.tensor([2.0, 0.5], dtype=torch.float64)
+        rho = torch.tensor([0.5, 1.0], dtype=torch.float64)
+        _, c_lo, _, load, cnt, best, fit = placement.pool_stats(
+            U, th, th, rho, 4, offsets, caps)
+        assert load.tolist() == [[0.0, 4.0, 4.0], [0.0, 0.0, 0.0]]
+        assert cnt.tolist() == [[4, 4, 4], [0, 0, 0]]
+        assert best.tolist() == [1, 0] and fit.tolist() == [True, False]
+        assert c_lo.tolist() == [12, 0]
+
+
+class TestScoreProbes:
+    """K4: Eq. (8) tau and rho-hat of probed candidates."""
+
+    @pytest.mark.parametrize("hetero", [False, True])
+    def test_matches_reference_kernel_and_numpy(self, hetero, x64,
+                                                monkeypatch):
+        ref_cluster, ref_jobs = _pick_case(7, hetero)
+        cluster, jobs = _carry(ref_cluster, ref_jobs)
+        S = cluster.num_servers
+        rng = np.random.default_rng(17)
+        for trial in range(8):
+            i = int(rng.integers(len(jobs)))
+            G = jobs[i].num_gpus
+            C = int(rng.integers(1, 24))
+            Y = np.zeros((C, S), dtype=np.int64)
+            for c in range(C):
+                for _ in range(G):
+                    Y[c, rng.integers(S)] += 1
+            p = rng.integers(0, 6, size=C).astype(np.float64)
+            got = placement.score_probes(cluster, jobs[i], Y, p,
+                                         device="cpu")
+            monkeypatch.setattr(ref_kp, "DISPATCH_MIN_ROWS", 10**9)
+            want_np = ref_kp.score_probes(ref_cluster, ref_jobs[i], Y, p)
+            monkeypatch.setattr(ref_kp, "DISPATCH_MIN_ROWS", 0)
+            want_k = ref_kp.score_probes(ref_cluster, ref_jobs[i], Y, p,
+                                         use_kernel=True)
+            for a, b, c in zip(want_np, want_k, got):
+                assert np.array_equal(np.asarray(a), c), f"trial {trial}"
+                assert np.array_equal(np.asarray(b), c), f"trial {trial}"
