@@ -14,14 +14,33 @@ Phases (any failure exits non-zero before the result line):
      shapes (S = 20 servers, N ~ 300 GPUs of ``philly_cluster(20,
      seed=1)``, B = C = 64 rows, J = 161 stack rows) and require
      ``torch.equal`` with its plain PyTorch version on the same inputs;
-     time both with CUDA events;
+     time both with CUDA events.  The attention kernel K5 is held
+     against its plain version within 2e-2 (bf16) and 2e-5 (float32) at
+     the llama3.2-1b serving shape (B = 4, H = 32, K = 8, S = 1024,
+     hd = 64, in the model layout the prefill hands it) and on small
+     cases (window, softcap, non-causal, ragged S, kv_len, hd 32/128/256),
+     and timed beside its plain version and
+     ``F.scaled_dot_product_attention`` (the yardstick only: the port
+     never calls it);
   3. end to end -- ``run_scenario(..., device="cuda")`` on the §7 Philly
      setting (160 jobs) for {homogeneous, heterogeneous} x {incremental,
      batched}, each held bitwise against the port's ``device="cpu"`` run
      with the reference defaults; then the |J| = 1024 scale point (32
      servers, homogeneous, batched engine) held the same way.  The kernel
      launch counters are zeroed before each run and every kernel that run
-     reaches must have launched.
+     reaches must have launched;
+  4. serving -- llama3.2-1b at full width (16 layers, d_model 2048, vocab
+     128256), random weights from a seeded ``torch.Generator``, K5 on:
+     float32 prefill (B = 2, S = 512) with K5 against K5 off (2e-4) and 16
+     stepped decode positions against it (2e-2); bf16 prefill (B = 4,
+     S = 1024) timed and compared with K5 off; the device's busy share of
+     a prefill and of a decode window (torch.profiler); then the
+     ``repro_torch.launch.serve`` CLI loop at its defaults (batch 4, prompt
+     16, 32 tokens).  K5 must launch once per layer of every K5 prefill.
+
+float32 matrix products run in full float32 throughout
+(``torch.backends.cuda.matmul.allow_tf32 = False``, set in ``main``): the
+float32 gates compare K5 with cuBLAS products.
 
 The last lines are the per-kernel JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -37,6 +56,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP64_OPS_PER_S = 34e12         # H100 SXM FP64 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
+# K5 at the llama3.2-1b serving shape: batch, q heads, kv heads, seq, hd.
+SERVE_ATTN = (4, 32, 8, 1024, 64)
 # The §7 heterogeneous variant: two speed tiers, shared vs isolated uplinks.
 HETERO = dict(speed_tiers=((50.0, 0.5), (12.5, 0.5)),
               link_classes=((1.25, "shared", 0.5), (1.25, "isolated", 0.5)))
@@ -344,10 +366,244 @@ def end_to_end_phase(torch, rt, kernels, totals: dict) -> None:
     device_profile(torch, rt, *walls[("hom", "batched")])
 
 
+def flash_phase(torch, np, dev) -> dict:
+    """K5 against its plain version on the card, at the serving shape in
+    bf16 and float32 and on small cases; times at the serving shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    def model_layout(B, S, H, K, hd, dtype, seed, Skv=None):
+        """q [B,S,H,hd], k/v [B,Skv,K,hd] as the prefill makes them, handed
+        to the kernel as [B, heads, S, hd] views (what ops does)."""
+        rng = np.random.default_rng(seed)
+        return [torch.tensor(rng.standard_normal((B, n, heads, hd)),
+                             dtype=torch.float32, device=dev).to(dtype)
+                .transpose(1, 2)
+                for n, heads in ((S, H), (Skv or S, K), (Skv or S, K))]
+
+    def check(label, q, k, v, tol, **kw):
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+            fail(f"K5 {label}: max abs err {err} against its plain version "
+                 f"exceeds {tol}")
+        print(f"kernel flash_attention {label}: within {tol} of plain, max "
+              f"abs err {err}", flush=True)
+        return err
+
+    B, H, K, S, hd = SERVE_ATTN
+    bf16 = model_layout(B, S, H, K, hd, torch.bfloat16, seed=1)
+    err = check(f"serving shape {SERVE_ATTN} bf16", *bf16, 2e-2)
+    check(f"serving shape {SERVE_ATTN} float32",
+          *model_layout(B, S, H, K, hd, torch.float32, seed=1), 2e-5)
+    small = [
+        ("window 32", (2, 256, 8, 2, 64), dict(window=32)),
+        ("window 300", (2, 512, 8, 2, 64), dict(window=300)),
+        ("softcap 50", (2, 256, 8, 8, 64), dict(softcap=50.0)),
+        ("non-causal Sq 128 Skv 256", (2, 128, 4, 2, 64, 256),
+         dict(causal=False)),
+        ("ragged S 200 GQA", (2, 200, 8, 2, 64), {}),
+        ("kv_len 150 of 192", (1, 192, 4, 4, 64), dict(kv_len=150)),
+        ("hd 32", (2, 256, 4, 2, 32), {}),
+        ("hd 128", (1, 320, 4, 1, 128), {}),
+        ("hd 256 window 64", (1, 256, 2, 2, 256), dict(window=64)),
+    ]
+    for label, (b, s, h, kh, d, *skv), kw in small:
+        check(label, *model_layout(b, s, h, kh, d, torch.float32, seed=s,
+                                   Skv=skv[0] if skv else None), 2e-5, **kw)
+    check("ragged S 200 GQA bf16",
+          *model_layout(2, 200, 8, 2, 64, torch.bfloat16, seed=3), 2e-2)
+
+    q, k, v = bf16
+    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                         enable_gqa=True)
+    if not torch.allclose(lib.float(), fa.flash_attention_plain(
+            q, k, v).float(), rtol=2e-2, atol=2e-2):
+        fail("scaled_dot_product_attention disagrees with K5's plain "
+             "version: the yardstick computes another function")
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v))
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v),
+                       reps=20)
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    n_bytes = 2 * (2 * B * H * S * hd + 2 * B * K * S * hd)
+    # QK^T and PV, 2 * hd operations each, over the S (S + 1) / 2 pairs a
+    # causal mask keeps.
+    n_ops = 2 * B * H * hd * S * (S + 1)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / BF16_OPS_PER_S * 1e3
+    print(f"kernel flash_attention bf16 {SERVE_ATTN}: {ms:.6f} ms/launch, "
+          f"plain {plain_ms:.6f} ms, scaled_dot_product_attention "
+          f"{library_ms:.6f} ms, bytes {n_bytes}, ops {n_ops}, bound "
+          f"{max(bytes_ms, ops_ms):.6f} ms", flush=True)
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:27",
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms, "bytes": n_bytes,
+        "entry": "flash_attention", "equal": False}
+
+
+def device_busy(torch, fn) -> tuple[float, list]:
+    """Device busy seconds of one call of ``fn`` under torch.profiler (CUDA
+    activity only) and the busiest items."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0), reverse=True)
+    return sum(r[0] for r in rows) / 1e6, rows
+
+
+def wall_s(torch, fn) -> float:
+    """Host wall seconds of one call of ``fn``, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def serving_phase(torch, np, kernels, totals: dict, dev) -> None:
+    """llama3.2-1b at full width through prefill (K5 on) and the serve
+    loop; the counters are zeroed just before and read just after."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    base = dataclasses.replace(get_config("llama3.2-1b"),
+                               use_flash_kernel=True)
+    L, V = base.n_layers, base.vocab
+    rng = np.random.default_rng(1)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    flash_prefills = 0
+
+    # 1. float32 compute: K5 on against K5 off, and stepped decode.
+    cfg32 = dataclasses.replace(base, compute_dtype="float32")
+    on = build_model(cfg32, device=dev)
+    off = build_model(dataclasses.replace(cfg32, use_flash_kernel=False),
+                      device=dev)
+    t0 = time.perf_counter()
+    params = on.init(0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"serving: llama3.2-1b full width, {n_params} float32 params "
+          f"from torch.Generator seed 0 in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    toks = torch.tensor(rng.integers(0, V, (2, 512)), dtype=torch.int32,
+                        device=dev)
+    lg_on = on.prefill(params, {"tokens": toks})
+    flash_prefills += 1
+    lg_off = off.prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    diff = float((lg_on - lg_off).abs().max())
+    if not torch.isfinite(lg_on).all() or not torch.allclose(
+            lg_on, lg_off, rtol=2e-4, atol=2e-4):
+        fail(f"f32 prefill: K5 on vs off max abs diff {diff} exceeds 2e-4")
+    cache = on.init_cache(2, 16)
+    steps = []
+    for pos in range(16):
+        lg, cache = on.decode_step(params, cache, toks[:, pos],
+                                   torch.full((2,), pos, dtype=torch.int32,
+                                              device=dev))
+        steps.append(lg)
+    dec = torch.stack(steps, dim=1)
+    dec_diff = float((dec - lg_on[:, :16]).abs().max())
+    if not torch.allclose(dec, lg_on[:, :16], rtol=2e-2, atol=2e-2):
+        fail(f"f32 decode: stepped logits vs K5 prefill max abs diff "
+             f"{dec_diff} exceeds 2e-2")
+    print(f"serving f32 B=2 S=512: prefill K5 on vs off max abs diff {diff} "
+          f"(limit 2e-4); 16 decode steps vs K5 prefill max abs diff "
+          f"{dec_diff} (limit 2e-2); logits |max| "
+          f"{float(lg_on.abs().max())}", flush=True)
+    del lg_on, lg_off, dec, steps, cache
+
+    # 2. bf16 compute (the config's own): timed prefill, K5 on vs off.
+    on = build_model(base, device=dev)
+    off = build_model(dataclasses.replace(base, use_flash_kernel=False),
+                      device=dev)
+    batch = {"tokens": torch.tensor(rng.integers(0, V, (4, 1024)),
+                                    dtype=torch.int32, device=dev)}
+    on.prefill(params, batch)                               # warm-up
+    flash_prefills += 1
+    holder = {}
+    t_on = wall_s(torch, lambda: holder.update(on=on.prefill(params, batch)))
+    flash_prefills += 1
+    t_off = wall_s(torch, lambda: holder.update(
+        off=off.prefill(params, batch)))
+    lg_on, lg_off = holder.pop("on"), holder.pop("off")
+    if not all(bool(torch.isfinite(lg_on[b]).all()) for b in range(4)):
+        fail("bf16 prefill: non-finite logits")
+    diff = max(float((lg_on[b].float() - lg_off[b].float()).abs().max())
+               for b in range(4))
+    agree = sum(float((lg_on[b].argmax(-1) == lg_off[b].argmax(-1))
+                      .float().sum()) for b in range(4)) / (4 * 1024)
+    print(f"serving bf16 B=4 S=1024 prefill: K5 on {t_on:.6f} s, K5 off "
+          f"{t_off:.6f} s; K5 on vs off max abs logit diff {diff}, argmax "
+          f"agreement {agree}", flush=True)
+    del lg_on, lg_off
+    busy, rows = device_busy(torch, lambda: on.prefill(params, batch))
+    flash_prefills += 1
+    print(f"device profile of one bf16 prefill: busy {busy:.6f} s of "
+          f"{t_on:.6f} s wall, idle share {1.0 - busy / t_on:.6f}")
+    for us, count, key in rows[:6]:
+        print(f"  device {us / 1e3:.3f} ms in {count} x {key[:70]}")
+    prompt = torch.tensor(rng.integers(0, V, (4, 16)), dtype=torch.int32,
+                          device=dev)
+    loop = lambda: serve.serve_loop(on, params, prompt, 8)     # noqa: E731
+    t_loop = wall_s(torch, loop)
+    busy, rows = device_busy(torch, loop)
+    print(f"device profile of a serve loop (prompt 16, 8 tokens): busy "
+          f"{busy:.6f} s of {t_loop:.6f} s wall, idle share "
+          f"{1.0 - busy / t_loop:.6f}")
+    for us, count, key in rows[:6]:
+        print(f"  device {us / 1e3:.3f} ms in {count} x {key[:70]}")
+    del params, on, off
+    torch.cuda.empty_cache()
+
+    # 3. The serve CLI at its defaults (batch 4, prompt 16, 32 tokens).
+    res = serve.main(["--device", str(dev)])
+    tokens, logits = res["tokens"], res["logits"]
+    if not bool(torch.isfinite(logits).all()):
+        fail("serve loop: non-finite logits")
+    if tokens.shape != (4, 32) or int(tokens.min()) < 0 or \
+            int(tokens.max()) >= V:
+        fail(f"serve loop: tokens {tuple(tokens.shape)} outside [0, {V})")
+    print(f"serve loop llama3.2-1b full width bf16: prefill (15 stepped "
+          f"positions) {res['prefill_s']:.6f} s, decode {res['decode_s']:.6f}"
+          f" s, {4 * 32 / res['decode_s']:.3f} tok/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+
+    counts = kernels.launch_counts()
+    if counts["flash_attention"] != L * flash_prefills:
+        fail(f"serving: K5 launched {counts['flash_attention']} times, "
+             f"expected {L} per K5 prefill x {flash_prefills}")
+    for name, n in counts.items():
+        totals[name] += n
+    print(f"serving launches {counts}", flush=True)
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
+    torch.backends.cuda.matmul.allow_tf32 = False
     if not (ROOT / "src" / "repro_torch" / "__init__.py").exists():
         fail("src/repro_torch is missing: run from the root of a checkout")
     sys.path.insert(0, str(ROOT / "src"))
@@ -377,8 +633,10 @@ def main() -> None:
 
     dev = repro_torch.resolve_device("cuda")
     rows = kernel_phase(torch, np, rt, dev)
+    rows.append(flash_phase(torch, np, dev))
     totals = dict.fromkeys(kernels.LAUNCHES, 0)
     end_to_end_phase(torch, rt, kernels, totals)
+    serving_phase(torch, np, kernels, totals, dev)
     for row in rows:
         row["launches"] = totals[row["name"]]
         if row["launches"] <= 0:

@@ -1,17 +1,24 @@
-"""Carry a problem instance across from the reference's plain-data forms.
+"""Carry inputs and weights across from the reference's plain-data forms.
 
 The scheduler has no weights; its counterpart of carrying weights across
 is the cluster and the job list.  The reference emits both as plain data
 -- ``Cluster.to_payload()`` (a dict of numbers, tuples and strings) and
 ``dataclasses.asdict(job)`` -- so the port rebuilds its own value types
-from those without importing the reference.
+from those without importing the reference.  Model weights come across
+as nested dicts of NumPy arrays (``params_from_reference``).
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
 from repro_torch.core.cluster import Cluster
 from repro_torch.core.jobs import Job
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dtype_of
 
-__all__ = ["from_reference"]
+__all__ = ["from_reference", "params_from_reference"]
 
 
 def from_reference(cluster_payload: dict, job_records: list[dict]
@@ -22,3 +29,25 @@ def from_reference(cluster_payload: dict, job_records: list[dict]
     cluster = Cluster.from_payload(cluster_payload)
     jobs = [Job(**dict(rec)) for rec in job_records]
     return cluster, jobs
+
+
+def params_from_reference(tree: dict, cfg: ModelConfig, device="cuda"
+                          ) -> dict:
+    """The port's params from the reference's params pytree as nested dicts
+    of NumPy arrays (``jax.tree.map(np.asarray, params)``, stacked ``[L,
+    ...]`` leaves under ``"layers"``), on ``device`` in ``cfg.param_dtype``.
+    Both packages use the same names and layouts, so every leaf maps to
+    the port's leaf of the same path; float32 values carry bit for bit
+    (bfloat16 ones through float32, exactly)."""
+    dev = resolve_device(device)
+    dtype = dtype_of(cfg.param_dtype)
+
+    def carry(node, path):
+        if isinstance(node, dict):
+            return {k: carry(v, f"{path}/{k}") for k, v in node.items()}
+        a = np.asarray(node)
+        if a.dtype.kind not in "fV":
+            raise TypeError(f"params{path}: dtype {a.dtype} is not a float")
+        return torch.tensor(a.astype(np.float32), device=dev).to(dtype)
+
+    return carry(tree, "")

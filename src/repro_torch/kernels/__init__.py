@@ -1,7 +1,7 @@
-"""Hand-written CUDA kernels of the scheduler path, for Hopper (sm_90a).
+"""Hand-written CUDA kernels of the port, for Hopper (sm_90a).
 
 Each kernel sits behind a wrapper that checks its tensors (device,
-float64/int64 dtype, shape, contiguity) and then either launches the
+dtype, shape, layout) and then either launches the
 kernel (CUDA tensors) or runs the plain PyTorch version that sits beside
 it in the same module (CPU tensors).  There is no fallback: a CUDA tensor
 whose kernel fails to build or launch raises.
@@ -9,7 +9,10 @@ whose kernel fails to build or launch raises.
   * :mod:`repro_torch.kernels.tau` -- ``tau`` / ``tau_het``: the Eq. (6)-(8)
     candidate-stack reduction behind ``contention.stack_model``;
   * :mod:`repro_torch.kernels.placement` -- ``pool`` / ``score``: the
-    columnar placement step's pool statistics and probe scoring.
+    columnar placement step's pool statistics and probe scoring;
+  * :mod:`repro_torch.kernels.flash_attention` -- ``flash_attention``:
+    blockwise online-softmax attention, the models' prefill attention
+    (model layout through :mod:`repro_torch.kernels.ops`).
 
 :data:`LAUNCHES` counts kernel launches per kernel (a wrapper adds one
 where it launches, and nowhere else), so a run can show that it went
@@ -20,7 +23,8 @@ from __future__ import annotations
 __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts"]
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
-LAUNCHES = {"tau": 0, "tau_het": 0, "pool": 0, "score": 0}
+LAUNCHES = {"tau": 0, "tau_het": 0, "pool": 0, "score": 0,
+            "flash_attention": 0}
 
 
 def launch_counts() -> dict[str, int]:

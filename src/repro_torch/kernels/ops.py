@@ -1,0 +1,26 @@
+"""Model-layout wrappers around the port's kernels.
+
+The port of ``repro/kernels/ops.py``.  The reference repeats the kv heads
+for grouped-query attention and pads the sequence to the Pallas block
+size; the port's K5 kernel maps each query head to its kv head itself and
+masks the ragged edge, so this wrapper only hands it transposed views
+(no copies).  ``ops.rmsnorm`` and ``ops.swiglu`` wait for the K7 and K8
+kernels.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import flash_attention as _fa
+
+__all__ = ["flash_attention"]
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
+    """Model-layout entry point: q [B,S,H,hd], k/v [B,S,K,hd] (GQA ok).
+
+    Returns [B,S,H,hd]: on a CUDA tensor through the K5 kernel, on a CPU
+    tensor through its plain version."""
+    out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal, window=window,
+                              softcap=softcap, kv_len=k.shape[1])
+    return out.transpose(1, 2)

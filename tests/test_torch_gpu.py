@@ -6,8 +6,10 @@ reference, so it runs on a machine with the card but no JAX::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Inputs are the §7 shapes' small cousins, made from numpy seeds; every
-comparison is ``torch.equal`` (float64, bit for bit).
+Inputs are made from numpy seeds.  The scheduler kernels (K1-K4) are
+held ``torch.equal`` to their plain versions (float64, bit for bit); the
+attention kernel K5 within 2e-5 in float32 and 2e-2 in bfloat16, the
+tolerances of the reference's kernel tests (fp32 sums in another order).
 """
 import numpy as np
 import pytest
@@ -15,7 +17,8 @@ import torch
 
 from repro_torch.core import philly_cluster, philly_workload
 from repro_torch.core.contention import _job_terms
-from repro_torch.kernels import LAUNCHES, placement, tau
+from repro_torch.kernels import LAUNCHES, ops, placement, tau
+from repro_torch.kernels import flash_attention as fa
 
 HETERO = dict(speed_tiers=((50.0, 0.5), (12.5, 0.5)),
               link_classes=((1.25, "shared", 0.5), (1.25, "isolated", 0.5)))
@@ -28,6 +31,7 @@ def cuda():
     """The card, or a skip: decided here, never at import."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False    # full fp32 references
     return torch.device("cuda")
 
 
@@ -144,3 +148,80 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda):
                                                 device=cuda),) * 3, 1,
                              torch.zeros(1, dtype=torch.int64, device=cuda),
                              torch.ones(1, dtype=torch.int64, device=cuda))
+
+
+def _tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=2e-5, atol=2e-5)
+
+
+def _qkv(dev, dtype, B, H, K, Sq, Skv, hd, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+
+    def t(n, S):
+        a = rng.standard_normal((B, n, S, hd)).astype(np.float32) * scale
+        return torch.tensor(a, device=dev).to(dtype)
+
+    return t(H, Sq), t(K, Skv), t(K, Skv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,S,hd", [
+    (1, 2, 2, 128, 32), (2, 8, 2, 200, 64), (1, 4, 1, 320, 128),
+])
+def test_flash_kernel_close_to_plain(cuda, B, H, K, S, hd, dtype):
+    q, k, v = _qkv(cuda, dtype, B, H, K, S, S, hd, seed=S + hd)
+    before = LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("case", [
+    dict(window=32), dict(window=300), dict(softcap=50.0, scale=3.0),
+    dict(causal=False, Sq=128, Skv=256), dict(kv_len=150, Skv=192),
+    dict(causal=False, kv_len=70, Sq=64, Skv=100), dict(hd=256, Sq=96),
+])
+def test_flash_kernel_options(cuda, case):
+    case = dict(case)
+    causal = case.pop("causal", True)
+    hd, Sq = case.pop("hd", 64), case.pop("Sq", 256)
+    Skv = case.pop("Skv", Sq)
+    q, k, v = _qkv(cuda, torch.float32, 2, 4, 2, Sq, Skv, hd, seed=7,
+                   scale=case.pop("scale", 1.0))
+    got = fa.flash_attention(q, k, v, causal=causal, **case)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, **case)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_model_layout_reads_strided_views(cuda):
+    """ops.flash_attention hands the kernel transposed [B,S,H,hd] views."""
+    rng = np.random.default_rng(11)
+    B, S, H, K, hd = 2, 200, 8, 2, 64
+    q, k, v = (torch.tensor(rng.standard_normal((B, S, n, hd)),
+                            dtype=torch.float32, device=cuda)
+               for n in (H, K, K))
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2)).transpose(1, 2)
+    assert got.shape == (B, S, H, hd) and got.is_contiguous()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
+    def refuse(*args, **kw):
+        raise AssertionError("plain version called on a CUDA tensor")
+
+    monkeypatch.setattr(fa, "flash_attention_plain", refuse)
+    q, k, v = _qkv(cuda, torch.bfloat16, 1, 2, 1, 128, 128, 64, seed=3)
+    before = LAUNCHES["flash_attention"]
+    fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(*(t[..., :48] for t in (q, k, v)))
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention(q.half(), k.half(), v.half())
