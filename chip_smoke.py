@@ -36,7 +36,26 @@ Phases (any failure exits non-zero before the result line):
      S = 1024) timed and compared with K5 off; the device's busy share of
      a prefill and of a decode window (torch.profiler); then the
      ``repro_torch.launch.serve`` CLI loop at its defaults (batch 4, prompt
-     16, 32 tokens).  K5 must launch once per layer of every K5 prefill.
+     16, 32 tokens).  K5 must launch once per layer of every K5 prefill;
+  5. mLSTM kernel -- K6 against its plain version at xlstm-350m's prefill
+     shape (B = 4, H = 4, S = 1024, hd = 512, in the model layout the
+     prefill hands it) within 2e-4 in float32 and 3e-2 with bf16 inputs,
+     and on small cases (hd 64/128/256, ragged S, S below one tile,
+     BH = 1); timed beside its plain version (no PyTorch call computes
+     this function);
+  6. xlstm -- xlstm-350m at full width (24 layers, d_model 1024, vocab
+     50304), random weights from a seeded ``torch.Generator``, K6 on:
+     a float32 prefill (B = 2, S = 1024) in which every mLSTM block's K6
+     output is held against the same block with K6 off (2e-4) and every
+     block's first 16 positions against 16 steps of its decode recurrence
+     (2e-2), on that block's own inputs; the whole prefill's K6 on vs off
+     difference and its change under a one-ulp nudge of the embeddings
+     are printed, not gated (the random-init stack amplifies rounding to
+     O(1) logits); bf16 prefill (B = 4,
+     S = 1024) timed with K6 on and off, their logits compared, the
+     mLSTM / sLSTM split of its wall time and the device's busy share;
+     then the serve CLI at its defaults.  K6 must launch exactly once per
+     mLSTM block (18) of every K6 prefill.
 
 float32 matrix products run in full float32 throughout
 (``torch.backends.cuda.matmul.allow_tf32 = False``, set in ``main``): the
@@ -56,9 +75,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP64_OPS_PER_S = 34e12         # H100 SXM FP64 outside the tensor cores
+FP32_OPS_PER_S = 67e12         # H100 SXM FP32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 # K5 at the llama3.2-1b serving shape: batch, q heads, kv heads, seq, hd.
 SERVE_ATTN = (4, 32, 8, 1024, 64)
+# K6 at the xlstm-350m prefill shape: batch, heads, seq, hd.
+XLSTM_MLSTM = (4, 4, 1024, 512)
 # The §7 heterogeneous variant: two speed tiers, shared vs isolated uplinks.
 HETERO = dict(speed_tiers=((50.0, 0.5), (12.5, 0.5)),
               link_classes=((1.25, "shared", 0.5), (1.25, "isolated", 0.5)))
@@ -450,6 +472,81 @@ def flash_phase(torch, np, dev) -> dict:
         "entry": "flash_attention", "equal": False}
 
 
+def mlstm_phase(torch, np, dev) -> dict:
+    """K6 against its plain version on the card, at the xlstm-350m prefill
+    shape in float32 and with bf16 inputs and on small cases; times at the
+    prefill shape."""
+    from repro_torch.kernels import mlstm as ml
+    from repro_torch.kernels import ops
+
+    def model_layout(B, H, S, hd, dtype, seed):
+        """q/k/v [B,S,H,hd] split out of one [B,S,3*H*hd] product and v
+        pre-scaled, F (cumulative log-forget) and i [B,S,H] split out of
+        one [B,S,2H] product, as the prefill makes them."""
+        rng = np.random.default_rng(seed)
+        qkv = torch.tensor(rng.standard_normal((B, S, 3 * H * hd)),
+                           dtype=torch.float32, device=dev).to(dtype)
+        q, k, v = (t.reshape(B, S, H, hd) for t in qkv.chunk(3, dim=-1))
+        gates = torch.tensor(rng.standard_normal((B, S, 2 * H)),
+                             dtype=torch.float32, device=dev)
+        i, f = gates.chunk(2, dim=-1)
+        F = torch.cumsum(torch.nn.functional.logsigmoid(f + 3.0), dim=1)
+        return q, k, v / hd ** 0.5, F, i
+
+    def plain(q, k, v, F, i):
+        return ml.mlstm_parallel_plain(
+            *(t.transpose(1, 2) for t in (q, k, v, F, i))).transpose(1, 2)
+
+    def check(label, args, tol):
+        got, want = ops.mlstm(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.isfinite(got).all() or not torch.allclose(
+                got.float(), want.float(), rtol=tol, atol=tol):
+            fail(f"K6 {label}: max abs err {err} against its plain version "
+                 f"exceeds {tol}")
+        print(f"kernel mlstm {label}: within {tol} of plain, max abs err "
+              f"{err}", flush=True)
+        return err
+
+    B, H, S, hd = XLSTM_MLSTM
+    f32 = model_layout(B, H, S, hd, torch.float32, seed=1)
+    err = check(f"prefill shape {XLSTM_MLSTM} float32", f32, 2e-4)
+    check(f"prefill shape {XLSTM_MLSTM} bf16",
+          model_layout(B, H, S, hd, torch.bfloat16, seed=1), 3e-2)
+    for label, (b, h, s, d) in [
+            ("hd 64", (2, 4, 256, 64)), ("hd 128", (1, 4, 320, 128)),
+            ("hd 256", (2, 2, 256, 256)), ("ragged S 300", (2, 4, 300, 512)),
+            ("S 20 below one tile", (2, 4, 20, 512)),
+            ("BH 1", (1, 1, 1024, 512))]:
+        check(label, model_layout(b, h, s, d, torch.float32, seed=s + d),
+              2e-4)
+    check("ragged S 300 bf16",
+          model_layout(2, 4, 300, 512, torch.bfloat16, seed=3), 3e-2)
+
+    ms = time_ms(torch, lambda: ops.mlstm(*f32), reps=50)
+    plain_ms = time_ms(torch, lambda: plain(*f32), reps=20)
+    # q, k, v, F, i read once, y written once (float32).
+    n_bytes = 4 * (4 * B * S * H * hd + 2 * B * S * H)
+    # q.k and S v, 2 * hd operations each, over the S (S + 1) / 2 causal
+    # pairs, on the CUDA cores in fp32.
+    n_ops = 2 * hd * B * H * S * (S + 1)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    print(f"kernel mlstm float32 {XLSTM_MLSTM}: {ms:.6f} ms/launch, plain "
+          f"{plain_ms:.6f} ms, bytes {n_bytes}, ops {n_ops}, bound "
+          f"{max(bytes_ms, ops_ms):.6f} ms", flush=True)
+    return {
+        "name": "mlstm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mlstm.cu",
+        "replaces": "src/repro/kernels/mlstm.py:31",
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None, "bytes": n_bytes, "entry": "mlstm_parallel",
+        "equal": False}
+
+
 def device_busy(torch, fn) -> tuple[float, list]:
     """Device busy seconds of one call of ``fn`` under torch.profiler (CUDA
     activity only) and the busiest items."""
@@ -594,6 +691,202 @@ def serving_phase(torch, np, kernels, totals: dict, dev) -> None:
     print(f"serving launches {counts}", flush=True)
 
 
+def split_seconds(torch, module, names) -> dict:
+    """Wrap ``module``'s functions ``names`` in place so that each call
+    adds its host wall seconds, ending in a synchronize, to the returned
+    dict (the callers look them up on ``module`` at call time)."""
+    spent = dict.fromkeys(names, 0.0)
+    for name in names:
+        def timed(*args, _fn=getattr(module, name), _name=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                spent[_name] += time.perf_counter() - t0
+
+        setattr(module, name, timed)
+    return spent
+
+
+def per_block_checks(torch, xlstm, model, params, toks) -> tuple:
+    """One float32 prefill with K6 on, in which every block is also checked
+    on its own inputs: each mLSTM block's K6 output against the same block
+    with K6 off (the query-chunked form) within 2e-4, and the first 16
+    positions of each block against 16 steps of its decode recurrence from
+    the zero state within 2e-2.  Whole-prefill comparisons cannot hold
+    such tolerances here: at random init the 24-layer stack amplifies a
+    one-ulp change of its input to O(1) logits (printed by the caller).
+    Returns the logits and the worst difference of each check."""
+    import dataclasses
+
+    from repro_torch.models import ssm
+
+    cfg_off = dataclasses.replace(model.config, use_flash_kernel=False)
+    worst = {"k6": 0.0, "decode": 0.0}
+    blocks = {"mlstm_seq": xlstm.mlstm_seq, "slstm_seq": xlstm.slstm_seq}
+    steps = {"mlstm_seq": (ssm.mlstm_step, ssm.init_mlstm_state),
+             "slstm_seq": (ssm.slstm_step, ssm.init_slstm_state)}
+
+    def checked(name):
+        def run(cfg_, p, x):
+            y = blocks[name](cfg_, p, x)
+            if name == "mlstm_seq":
+                y_off = blocks[name](cfg_off, p, x)
+                diff = float((y - y_off).abs().max())
+                worst["k6"] = max(worst["k6"], diff)
+                if not torch.allclose(y, y_off, rtol=2e-4, atol=2e-4):
+                    fail(f"xlstm f32 mLSTM block: K6 on vs off max abs diff "
+                         f"{diff} exceeds 2e-4")
+            step, init_state = steps[name]
+            state, outs = init_state(cfg_, x.shape[0], x.device), []
+            for t in range(16):
+                o, state = step(cfg_, p, state, x[:, t])
+                outs.append(o)
+            dec = torch.stack(outs, dim=1)
+            diff = float((dec - y[:, :16]).abs().max())
+            worst["decode"] = max(worst["decode"], diff)
+            if not torch.allclose(dec, y[:, :16], rtol=2e-2, atol=2e-2):
+                fail(f"xlstm f32 {name[:5]} block: 16 stepped positions vs "
+                     f"the parallel form max abs diff {diff} exceeds 2e-2")
+            return y
+        return run
+
+    for name in blocks:
+        setattr(xlstm, name, checked(name))
+    try:
+        logits = model.prefill(params, {"tokens": toks})
+    finally:
+        for name, fn in blocks.items():
+            setattr(xlstm, name, fn)
+    torch.cuda.synchronize()
+    return logits, worst
+
+
+def xlstm_phase(torch, np, kernels, totals: dict, dev) -> None:
+    """xlstm-350m at full width through prefill (K6 on) and the serve loop;
+    the counters are zeroed just before and read just after."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, xlstm
+
+    base = dataclasses.replace(get_config("xlstm-350m"),
+                               use_flash_kernel=True)
+    n_mlstm = base.n_layers // base.slstm_every * (base.slstm_every - 1)
+    V = base.vocab
+    rng = np.random.default_rng(2)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    k6_prefills = 0
+
+    # (a) float32 compute: K6 against K6 off and stepped decode against
+    # the parallel form, block by block on the same inputs (see
+    # per_block_checks), and the whole prefill's sensitivity.
+    cfg32 = dataclasses.replace(base, compute_dtype="float32")
+    on = build_model(cfg32, device=dev)
+    off = build_model(dataclasses.replace(cfg32, use_flash_kernel=False),
+                      device=dev)
+    t0 = time.perf_counter()
+    params = on.init(0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"xlstm: xlstm-350m full width, {n_params} float32 params from "
+          f"torch.Generator seed 0 in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    toks = torch.tensor(rng.integers(0, V, (2, 1024)), dtype=torch.int32,
+                        device=dev)
+    lg_on, worst = per_block_checks(torch, xlstm, on, params, toks)
+    k6_prefills += 1
+    print(f"xlstm f32 B=2 S=1024, each of the {n_mlstm} mLSTM and "
+          f"{base.n_layers - n_mlstm} sLSTM blocks on the K6 prefill's own "
+          f"inputs: K6 on vs off max abs diff {worst['k6']} (within rtol = "
+          f"atol = 2e-4); 16 stepped decode positions vs the parallel form "
+          f"max abs diff {worst['decode']} (within rtol = atol = 2e-2)",
+          flush=True)
+    lg_off = off.prefill(params, {"tokens": toks})
+    nudged = dict(params, embed=torch.nextafter(
+        params["embed"], torch.full_like(params["embed"], float("inf"))))
+    lg_nudged = off.prefill(nudged, {"tokens": toks})
+    torch.cuda.synchronize()
+    if not torch.isfinite(lg_on).all() or lg_on.shape != (2, 1024, V):
+        fail(f"xlstm f32 prefill: logits {tuple(lg_on.shape)} not finite")
+    print(f"xlstm f32 whole prefill (reported, not gated): K6 on vs off max "
+          f"abs logit diff {float((lg_on - lg_off).abs().max())}; K6 off vs "
+          f"K6 off with the embeddings one ulp up "
+          f"{float((lg_nudged - lg_off).abs().max())}; logits |max| "
+          f"{float(lg_off.abs().max())}", flush=True)
+    del lg_on, lg_off, lg_nudged, nudged
+
+    # (b) bf16 compute (the config's own): timed prefill, K6 on vs off.
+    on = build_model(base, device=dev)
+    off = build_model(dataclasses.replace(base, use_flash_kernel=False),
+                      device=dev)
+    batch = {"tokens": torch.tensor(rng.integers(0, V, (4, 1024)),
+                                    dtype=torch.int32, device=dev)}
+    on.prefill(params, batch)                               # warm-up
+    k6_prefills += 1
+    holder = {}
+    t_on = wall_s(torch, lambda: holder.update(on=on.prefill(params, batch)))
+    k6_prefills += 1
+    t_off = wall_s(torch, lambda: holder.update(
+        off=off.prefill(params, batch)))
+    lg_on, lg_off = holder.pop("on"), holder.pop("off")
+    if not bool(torch.isfinite(lg_on).all()):
+        fail("xlstm bf16 prefill: non-finite logits")
+    diff = float((lg_on.float() - lg_off.float()).abs().max())
+    agree = float((lg_on.argmax(-1) == lg_off.argmax(-1)).float().mean())
+    print(f"xlstm bf16 B=4 S=1024 prefill: K6 on {t_on:.6f} s, K6 off "
+          f"{t_off:.6f} s; K6 on vs off max abs logit diff {diff}, argmax "
+          f"agreement {agree}", flush=True)
+    del lg_on, lg_off
+    blocks = {name: getattr(xlstm, name) for name in ("mlstm_seq",
+                                                      "slstm_seq")}
+    spent = split_seconds(torch, xlstm, blocks)
+    try:
+        t_split = wall_s(torch, lambda: on.prefill(params, batch))
+    finally:
+        for name, fn in blocks.items():
+            setattr(xlstm, name, fn)
+    k6_prefills += 1
+    print(f"xlstm bf16 prefill split (each block synchronised): mLSTM "
+          f"blocks {spent['mlstm_seq']:.6f} s, sLSTM blocks (Python loop "
+          f"over S) {spent['slstm_seq']:.6f} s, of {t_split:.6f} s",
+          flush=True)
+    busy, rows = device_busy(torch, lambda: on.prefill(params, batch))
+    k6_prefills += 1
+    print(f"device profile of one xlstm bf16 prefill: busy {busy:.6f} s of "
+          f"{t_on:.6f} s wall, idle share {1.0 - busy / t_on:.6f}")
+    for us, count, key in rows[:6]:
+        print(f"  device {us / 1e3:.3f} ms in {count} x {key[:70]}")
+    del params, on, off
+    torch.cuda.empty_cache()
+
+    # (c) The serve CLI at its defaults (batch 4, prompt 16, 32 tokens).
+    res = serve.main(["--arch", "xlstm-350m", "--device", str(dev)])
+    tokens, logits = res["tokens"], res["logits"]
+    if not bool(torch.isfinite(logits).all()):
+        fail("xlstm serve loop: non-finite logits")
+    if tokens.shape != (4, 32) or int(tokens.min()) < 0 or \
+            int(tokens.max()) >= V:
+        fail(f"xlstm serve loop: tokens {tuple(tokens.shape)} outside "
+             f"[0, {V})")
+    print(f"serve loop xlstm-350m full width bf16: prefill (15 stepped "
+          f"positions) {res['prefill_s']:.6f} s, decode {res['decode_s']:.6f}"
+          f" s, {4 * 32 / res['decode_s']:.3f} tok/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+
+    counts = kernels.launch_counts()
+    if counts["mlstm"] != n_mlstm * k6_prefills:
+        fail(f"xlstm: K6 launched {counts['mlstm']} times, expected "
+             f"{n_mlstm} per K6 prefill x {k6_prefills}")
+    for name, n in counts.items():
+        totals[name] += n
+    print(f"xlstm launches {counts}", flush=True)
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -634,9 +927,11 @@ def main() -> None:
     dev = repro_torch.resolve_device("cuda")
     rows = kernel_phase(torch, np, rt, dev)
     rows.append(flash_phase(torch, np, dev))
+    rows.append(mlstm_phase(torch, np, dev))
     totals = dict.fromkeys(kernels.LAUNCHES, 0)
     end_to_end_phase(torch, rt, kernels, totals)
     serving_phase(torch, np, kernels, totals, dev)
+    xlstm_phase(torch, np, kernels, totals, dev)
     for row in rows:
         row["launches"] = totals[row["name"]]
         if row["launches"] <= 0:

@@ -34,11 +34,17 @@ def from_reference(cluster_payload: dict, job_records: list[dict]
 def params_from_reference(tree: dict, cfg: ModelConfig, device="cuda"
                           ) -> dict:
     """The port's params from the reference's params pytree as nested dicts
-    of NumPy arrays (``jax.tree.map(np.asarray, params)``, stacked ``[L,
-    ...]`` leaves under ``"layers"``), on ``device`` in ``cfg.param_dtype``.
-    Both packages use the same names and layouts, so every leaf maps to
-    the port's leaf of the same path; float32 values carry bit for bit
-    (bfloat16 ones through float32, exactly)."""
+    of NumPy arrays (``jax.tree.map(np.asarray, params)``), on ``device``.
+
+    Both packages use the same names and stacked layouts -- ``[L, ...]``
+    leaves under ``"layers"`` (dense), ``[G, n_m, ...]`` under ``"mlstm"``
+    and ``[G, ...]`` under ``"slstm"`` (xlstm) -- so every leaf maps to the
+    port's leaf of the same path, whatever the depth of the dicts.  A
+    float32 leaf stays float32 (with a narrower ``cfg.param_dtype`` these
+    are the leaves the reference pins to float32, such as xLSTM's ``w_if``
+    and ``if_bias``); any other float leaf comes in ``cfg.param_dtype``.
+    float32 values carry bit for bit (bfloat16 ones through float32,
+    exactly)."""
     dev = resolve_device(device)
     dtype = dtype_of(cfg.param_dtype)
 
@@ -48,6 +54,7 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device="cuda"
         a = np.asarray(node)
         if a.dtype.kind not in "fV":
             raise TypeError(f"params{path}: dtype {a.dtype} is not a float")
-        return torch.tensor(a.astype(np.float32), device=dev).to(dtype)
+        to = torch.float32 if a.dtype == np.float32 else dtype
+        return torch.tensor(a.astype(np.float32), device=dev).to(to)
 
     return carry(tree, "")

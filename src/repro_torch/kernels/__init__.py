@@ -12,7 +12,10 @@ whose kernel fails to build or launch raises.
     columnar placement step's pool statistics and probe scoring;
   * :mod:`repro_torch.kernels.flash_attention` -- ``flash_attention``:
     blockwise online-softmax attention, the models' prefill attention
-    (model layout through :mod:`repro_torch.kernels.ops`).
+    (model layout through :mod:`repro_torch.kernels.ops`);
+  * :mod:`repro_torch.kernels.mlstm` -- ``mlstm_parallel``: the xLSTM
+    mLSTM parallel form, the xlstm models' prefill (model layout through
+    :mod:`repro_torch.kernels.ops`).
 
 :data:`LAUNCHES` counts kernel launches per kernel (a wrapper adds one
 where it launches, and nowhere else), so a run can show that it went
@@ -24,7 +27,7 @@ __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts"]
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
 LAUNCHES = {"tau": 0, "tau_het": 0, "pool": 0, "score": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "mlstm": 0}
 
 
 def launch_counts() -> dict[str, int]:

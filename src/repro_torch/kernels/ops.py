@@ -4,14 +4,18 @@ The port of ``repro/kernels/ops.py``.  The reference repeats the kv heads
 for grouped-query attention and pads the sequence to the Pallas block
 size; the port's K5 kernel maps each query head to its kv head itself and
 masks the ragged edge, so this wrapper only hands it transposed views
-(no copies).  ``ops.rmsnorm`` and ``ops.swiglu`` wait for the K7 and K8
-kernels.
+(no copies).  ``mlstm`` does the same for the K6 kernel, which the
+reference's ``ops`` does not reach (its xLSTM model runs the jnp form).
+``ops.rmsnorm`` and ``ops.swiglu`` wait for the K7 and K8 kernels.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import flash_attention as _fa
+import torch
 
-__all__ = ["flash_attention"]
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mlstm as _ml
+
+__all__ = ["flash_attention", "mlstm"]
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -24,3 +28,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                               v.transpose(1, 2), causal=causal, window=window,
                               softcap=softcap, kv_len=k.shape[1])
     return out.transpose(1, 2)
+
+
+def mlstm(q, k, v, F, i_pre):
+    """Model-layout entry point of the mLSTM parallel form: q/k/v
+    [B,S,H,hd] (v pre-scaled), F (cumulative log-forget) and i_pre
+    [B,S,H] float32.
+
+    Returns a contiguous [B,S,H,hd] of q's dtype: on a CUDA tensor through
+    the K6 kernel, on a CPU tensor through its plain version."""
+    y = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _ml.mlstm_parallel(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), F.transpose(1, 2),
+                       i_pre.transpose(1, 2), out=y.transpose(1, 2))
+    return y

@@ -20,7 +20,6 @@ NOT_PORTED = {
     "moe": "build_moe (ROADMAP.md queue 1, item 9)",
     "hybrid": "build_hybrid (ROADMAP.md queue 1, item 9)",
     "audio": "build_audio (ROADMAP.md queue 1, item 9)",
-    "ssm": "xlstm.build_xlstm (ROADMAP.md queue 1, item 9)",
 }
 
 
@@ -40,10 +39,12 @@ def build_model(cfg: ModelConfig, max_seq: int = 4096,
     """The model of ``cfg`` on ``device`` (the card unless the caller asks
     for the CPU; raises without one).  Raises NotImplementedError for a
     family that is not ported yet."""
-    from repro_torch.models import transformer
+    from repro_torch.models import transformer, xlstm
     dev = resolve_device(device)
     if cfg.family in ("dense", "vlm"):
         fns = transformer.build_dense(cfg, max_seq, dev)
+    elif cfg.family == "ssm":
+        fns = xlstm.build_xlstm(cfg, max_seq, dev)
     elif cfg.family in NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet: "

@@ -1,0 +1,225 @@
+"""xLSTM sequence mixers on torch tensors: the mLSTM (matrix memory) and
+sLSTM (scalar memory) blocks.
+
+The port of the xLSTM half of ``repro/models/ssm.py``, function for
+function; the Mamba half (Hymba's SSM head) waits for the hybrid slice.
+
+  * The mLSTM's parallel form (train/prefill) is attention-style with an
+    additive log-decay matrix.  With ``cfg.use_flash_kernel`` it goes
+    through the K6 kernel (``repro_torch.kernels.ops.mlstm``, its plain
+    version on CPU tensors); otherwise through the reference's
+    query-chunked block, whose [c, S] decay slab never grows to [S, S].
+  * Decode uses the O(1) matrix-memory recurrence (C, n, m).
+  * sLSTM is sequential: the reference's scan over time is a Python loop
+    over the sequence here, one cell step per position.
+
+The reference's dtypes are kept: q/k/v enter the parallel form in fp32,
+the gate weights ``w_if``/``if_bias`` and every recurrent state are fp32.
+One card has no mesh, so the reference's ``shard_hint`` is left out.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import init_normal, rms_norm
+
+# ---------------------------------------------------------------------------
+# mLSTM (matrix memory)
+# ---------------------------------------------------------------------------
+
+
+def init_mlstm(gen, cfg: ModelConfig, dtype, lead: tuple = ()):
+    """mLSTM block: pre-norm, up-projection (factor pf), q/k/v + i/f/o gates,
+    matrix-memory mixing, gated down-projection.  Every leaf carries the
+    leading dims ``lead``."""
+    d = cfg.d_model
+    H, hd = cfg.n_heads, cfg.head_dim
+    dp = int(cfg.mlstm_proj_factor * d)
+    s, sp = 1.0 / math.sqrt(d), 1.0 / math.sqrt(dp)
+    dev = gen.device
+    bias = torch.cat([torch.zeros(H, device=dev), torch.full((H,), 3.0,
+                                                             device=dev)])
+    return {
+        "norm": torch.ones(lead + (d,), dtype=dtype, device=dev),
+        "w_up": init_normal(gen, lead + (d, 2 * dp), s, dtype),
+        "w_qkv": init_normal(gen, lead + (dp, 3 * H * hd), sp, dtype),
+        "w_if": init_normal(gen, lead + (dp, 2 * H), sp, torch.float32),
+        "if_bias": bias.expand(lead + (2 * H,)).clone(),
+        "w_og": init_normal(gen, lead + (dp, H * hd), sp, dtype),
+        "w_down": init_normal(gen, lead + (H * hd, d),
+                              1.0 / math.sqrt(H * hd), dtype),
+    }
+
+
+def _mlstm_qkvif(cfg: ModelConfig, p, xe):
+    H, hd = cfg.n_heads, cfg.head_dim
+    qkv = xe @ p["w_qkv"].to(xe.dtype)
+    shape = xe.shape[:-1] + (H, hd)
+    q, k, v = (t.reshape(shape) for t in qkv.chunk(3, dim=-1))
+    i_f = xe.float() @ p["w_if"] + p["if_bias"]
+    i_pre, f_pre = i_f.chunk(2, dim=-1)                        # [..., H]
+    return q, k, v / math.sqrt(hd), i_pre, f_pre
+
+
+def _mlstm_parallel_block(q_c, F_c, k, v, Fcum, i_pre, t0: int):
+    """One query chunk of the mLSTM parallel form (fp32 in/out).
+
+    q_c: [B,c,H,hd] queries for rows [t0, t0+c); F_c their cumulative
+    log-forget; k/v/Fcum/i_pre: full-sequence tensors.  Only the [c, S]
+    decay slab materialises."""
+    S = k.shape[1]
+    # D[b,h,t,s] = F_t - F_s + i_s  for s <= t   (log decay matrix)
+    D = F_c.transpose(1, 2)[..., :, None] \
+        - Fcum.transpose(1, 2)[..., None, :] \
+        + i_pre.transpose(1, 2)[..., None, :]                 # [B,H,c,S]
+    t_idx = t0 + torch.arange(q_c.shape[1], device=q_c.device)
+    causal = t_idx[:, None] >= torch.arange(S, device=q_c.device)[None, :]
+    D = D.masked_fill(~causal, float("-inf"))
+    m = D.amax(dim=-1, keepdim=True)                          # stabiliser
+    w = torch.exp(D - m)
+    scores = torch.einsum("bthd,bshd->bhts", q_c, k) * w
+    norm = torch.maximum(scores.sum(dim=-1, keepdim=True).abs(),
+                         torch.exp(-m))
+    return torch.einsum("bhts,bshd->bthd", scores / norm, v)  # [B,c,H,hd]
+
+
+def mlstm_seq(cfg: ModelConfig, p, x):
+    """Parallel form over the full sequence.  x: [B,S,d] -> [B,S,d]."""
+    cd = x.dtype
+    B, S, d = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    xe, zg = (rms_norm(x, p["norm"], cfg.norm_eps)
+              @ p["w_up"].to(cd)).chunk(2, dim=-1)
+    q, k, v, i_pre, f_pre = _mlstm_qkvif(cfg, p, xe)
+    q, k, v = q.float(), k.float(), v.float()
+    Fcum = torch.cumsum(F.logsigmoid(f_pre), dim=1)           # [B,S,H]
+
+    if cfg.use_flash_kernel:
+        y = kops.mlstm(q, k, v, Fcum, i_pre)
+    else:
+        chunk = cfg.q_chunk if (cfg.q_chunk and S > cfg.q_chunk
+                                and S % cfg.q_chunk == 0) else S
+        y = torch.cat([_mlstm_parallel_block(
+            q[:, t0:t0 + chunk], Fcum[:, t0:t0 + chunk], k, v, Fcum, i_pre,
+            t0) for t0 in range(0, S, chunk)], dim=1)
+    y = y.reshape(B, S, H * hd).to(cd)
+    y = y * F.silu(zg @ p["w_og"].to(cd))              # z-branch output gate
+    return x + y @ p["w_down"].to(cd)
+
+
+def init_mlstm_state(cfg: ModelConfig, batch: int, device,
+                     lead: tuple = ()):
+    H, hd = cfg.n_heads, cfg.head_dim
+    z = dict(dtype=torch.float32, device=device)
+    return {
+        "C": torch.zeros(lead + (batch, H, hd, hd), **z),
+        "n": torch.zeros(lead + (batch, H, hd), **z),
+        "m": torch.full(lead + (batch, H), -1e30, **z),
+    }
+
+
+def mlstm_step(cfg: ModelConfig, p, state, x_t):
+    """O(1) decode recurrence.  x_t: [B,d] -> ([B,d], new state)."""
+    cd = x_t.dtype
+    B, d = x_t.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    xe, zg = (rms_norm(x_t, p["norm"], cfg.norm_eps)
+              @ p["w_up"].to(cd)).chunk(2, dim=-1)
+    q, k, v, i_pre, f_pre = _mlstm_qkvif(cfg, p, xe)
+    q, k, v = q.float(), k.float(), v.float()
+    logf = F.logsigmoid(f_pre)                                # [B,H]
+    m_new = torch.maximum(logf + state["m"], i_pre)
+    f_s = torch.exp(logf + state["m"] - m_new)
+    i_s = torch.exp(i_pre - m_new)
+    C = f_s[..., None, None] * state["C"] \
+        + i_s[..., None, None] * torch.einsum("bhk,bhv->bhkv", k, v)
+    n = f_s[..., None] * state["n"] + i_s[..., None] * k
+    num = torch.einsum("bhkv,bhk->bhv", C, q)
+    den = torch.maximum(torch.einsum("bhk,bhk->bh", n, q).abs(),
+                        torch.exp(-m_new))
+    y = (num / den[..., None]).reshape(B, H * hd).to(cd)
+    y = y * F.silu(zg @ p["w_og"].to(cd))              # z-branch output gate
+    return x_t + y @ p["w_down"].to(cd), {"C": C, "n": n, "m": m_new}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (scalar memory)
+# ---------------------------------------------------------------------------
+
+
+def init_slstm(gen, cfg: ModelConfig, dtype, lead: tuple = ()):
+    """sLSTM block: recurrent scalar-memory cell + post up/down MLP (pf 4/3).
+    Every leaf carries the leading dims ``lead``."""
+    d = cfg.d_model
+    H = cfg.n_heads
+    dh = d // H
+    dff = int(d * 4 / 3)
+    s = 1.0 / math.sqrt(d)
+    return {
+        "norm": torch.ones(lead + (d,), dtype=dtype, device=gen.device),
+        "w_x": init_normal(gen, lead + (d, 4 * d), s, dtype),
+        "r_h": init_normal(gen, lead + (H, dh, 4 * dh), 1.0 / math.sqrt(dh),
+                           dtype),
+        "w_up": init_normal(gen, lead + (d, dff), s, dtype),
+        "w_down": init_normal(gen, lead + (dff, d), 1.0 / math.sqrt(dff),
+                              dtype),
+    }
+
+
+def init_slstm_state(cfg: ModelConfig, batch: int, device,
+                     lead: tuple = ()):
+    H = cfg.n_heads
+    shape = lead + (batch, H, cfg.d_model // H)
+    z = dict(dtype=torch.float32, device=device)
+    return {"c": torch.zeros(shape, **z), "n": torch.zeros(shape, **z),
+            "h": torch.zeros(shape, **z), "m": torch.full(shape, -1e30, **z)}
+
+
+def _slstm_cell(cfg: ModelConfig, p, state, gx):
+    """gx: [B, 4*d] pre-activations from the input path."""
+    B = gx.shape[0]
+    H = cfg.n_heads
+    dh = cfg.d_model // H
+    rh = torch.einsum("bhd,hdk->bhk", state["h"].to(p["r_h"].dtype), p["r_h"])
+    g = gx.reshape(B, H, 4 * dh).float() + rh.float()
+    i_pre, f_pre, z_pre, o_pre = g.chunk(4, dim=-1)           # [B,H,dh]
+    logf = F.logsigmoid(f_pre)
+    m_new = torch.maximum(logf + state["m"], i_pre)
+    i_s = torch.exp(i_pre - m_new)
+    f_s = torch.exp(logf + state["m"] - m_new)
+    c = f_s * state["c"] + i_s * torch.tanh(z_pre)
+    n = f_s * state["n"] + i_s
+    h = torch.sigmoid(o_pre) * c / n.clamp_min(1.0)
+    return {"c": c, "n": n, "h": h, "m": m_new}
+
+
+def _slstm_out(p, x, h):
+    """The post up/down MLP on the cell outputs h, plus the residual."""
+    cd = x.dtype
+    y = h.reshape(x.shape).to(cd)
+    y = F.gelu(y @ p["w_up"].to(cd), approximate="tanh") @ p["w_down"].to(cd)
+    return x + y
+
+
+def slstm_seq(cfg: ModelConfig, p, x):
+    """Sequential pass over time.  x: [B,S,d] -> [B,S,d]."""
+    B, S, d = x.shape
+    gx = rms_norm(x, p["norm"], cfg.norm_eps) @ p["w_x"].to(x.dtype)
+    state = init_slstm_state(cfg, B, x.device)
+    hs = []
+    for t in range(S):
+        state = _slstm_cell(cfg, p, state, gx[:, t])
+        hs.append(state["h"])
+    return _slstm_out(p, x, torch.stack(hs, dim=1))
+
+
+def slstm_step(cfg: ModelConfig, p, state, x_t):
+    """One decode step.  x_t: [B,d] -> ([B,d], new state)."""
+    gx = rms_norm(x_t, p["norm"], cfg.norm_eps) @ p["w_x"].to(x_t.dtype)
+    new = _slstm_cell(cfg, p, state, gx)
+    return _slstm_out(p, x_t, new["h"]), new

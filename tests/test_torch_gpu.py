@@ -9,7 +9,8 @@ reference, so it runs on a machine with the card but no JAX::
 Inputs are made from numpy seeds.  The scheduler kernels (K1-K4) are
 held ``torch.equal`` to their plain versions (float64, bit for bit); the
 attention kernel K5 within 2e-5 in float32 and 2e-2 in bfloat16, the
-tolerances of the reference's kernel tests (fp32 sums in another order).
+mLSTM kernel K6 within 2e-4 and 3e-2, the tolerances of the reference's
+kernel tests (fp32 sums in another order).
 """
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from repro_torch.core import philly_cluster, philly_workload
 from repro_torch.core.contention import _job_terms
 from repro_torch.kernels import LAUNCHES, ops, placement, tau
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mlstm as ml
 
 HETERO = dict(speed_tiers=((50.0, 0.5), (12.5, 0.5)),
               link_classes=((1.25, "shared", 0.5), (1.25, "isolated", 0.5)))
@@ -225,3 +227,108 @@ def test_flash_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
         fa.flash_attention(*(t[..., :48] for t in (q, k, v)))
     with pytest.raises(TypeError, match="dtype"):
         fa.flash_attention(q.half(), k.half(), v.half())
+
+
+def _mlstm_inputs(dev, dtype, BH, S, hd, seed):
+    """q, k (pre-scaled), v [BH, S, hd] in ``dtype``; F, i [BH, S] float32,
+    with the reference test's gate distributions."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((BH, S, hd)) for _ in range(3))
+    k = k / np.sqrt(hd)
+    F = np.cumsum(-np.logaddexp(0.0, -(3.0 + rng.standard_normal((BH, S)))),
+                  axis=1)
+    i = rng.standard_normal((BH, S))
+    return ([_on(dev, a, torch.float32).to(dtype) for a in (q, k, v)]
+            + [_on(dev, a, torch.float32) for a in (F, i)])
+
+
+def _mlstm_tol(dtype):
+    return dict(rtol=3e-2, atol=3e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,S,hd", [
+    (2, 128, 64), (1, 300, 128), (3, 200, 256), (2, 256, 512), (1, 20, 32),
+])
+def test_mlstm_kernel_close_to_plain(cuda, BH, S, hd, dtype):
+    args = _mlstm_inputs(cuda, dtype, BH, S, hd, seed=S + hd)
+    before = LAUNCHES["mlstm"]
+    got = ml.mlstm_parallel(*args)
+    want = ml.mlstm_parallel_plain(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["mlstm"] == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **_mlstm_tol(dtype))
+
+
+def test_mlstm_model_layout_reads_strided_views(cuda):
+    """ops.mlstm hands the kernel transposed views of q/k/v split out of
+    one [B, S, 3*H*hd] product and of F/i split out of [B, S, 2H]."""
+    rng = np.random.default_rng(12)
+    B, S, H, hd = 2, 160, 4, 64
+    qkv = _on(cuda, rng.standard_normal((B, S, 3 * H * hd)), torch.float32)
+    q, k, v = (t.reshape(B, S, H, hd) for t in qkv.chunk(3, dim=-1))
+    v = v / 8.0
+    gates = _on(cuda, rng.standard_normal((B, S, 2 * H)), torch.float32)
+    i, f = gates.chunk(2, dim=-1)
+    F = torch.cumsum(torch.nn.functional.logsigmoid(f + 3.0), dim=1)
+    got = ops.mlstm(q, k, v, F, i)
+    want = ml.mlstm_parallel_plain(
+        *(t.transpose(1, 2) for t in (q, k, v, F, i))).transpose(1, 2)
+    assert got.shape == (B, S, H, hd) and got.is_contiguous()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_mlstm_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
+    def refuse(*args, **kw):
+        raise AssertionError("plain version called on a CUDA tensor")
+
+    monkeypatch.setattr(ml, "mlstm_parallel_plain", refuse)
+    q, k, v, F, i = _mlstm_inputs(cuda, torch.float32, 2, 64, 64, seed=4)
+    before = LAUNCHES["mlstm"]
+    ml.mlstm_parallel(q, k, v, F, i)
+    torch.cuda.synchronize()
+    assert LAUNCHES["mlstm"] == before + 1
+    with pytest.raises(ValueError, match="head dim"):
+        ml.mlstm_parallel(*(t[..., :48] for t in (q, k, v)), F, i)
+    with pytest.raises(TypeError, match="F: dtype"):
+        ml.mlstm_parallel(q, k, v, F.bfloat16(), i)
+
+
+def test_xlstm_prefill_kernel_on_vs_off(cuda):
+    """The reduced xlstm-350m on the card: K6 launches once per mLSTM
+    block and agrees with the query-chunked path within 2e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("xlstm-350m").reduced(),
+                              use_flash_kernel=True)
+    on = build_model(cfg, device=cuda)
+    off = build_model(dataclasses.replace(cfg, use_flash_kernel=False),
+                      device=cuda)
+    params = on.init(0)
+    toks = _on(cuda, np.random.default_rng(1).integers(0, cfg.vocab,
+                                                       (2, 64)), torch.int32)
+    before = LAUNCHES["mlstm"]
+    got = on.prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert LAUNCHES["mlstm"] == before + 2       # 2 groups x 1 mLSTM block
+    want = off.prefill(params, {"tokens": toks})
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_kernel_reads_unaligned_views(cuda, dtype):
+    """Rows that do not start on a 4-element boundary take the kernel's
+    element-wise loads; the result is the same."""
+    q, k, v, F, i = _mlstm_inputs(cuda, dtype, 2, 150, 64, seed=9)
+    wide = [torch.zeros(2, 150, 65, dtype=dtype, device=cuda)
+            for _ in range(3)]
+    for w, t in zip(wide, (q, k, v)):
+        w[..., 1:] = t
+    views = [w[..., 1:] for w in wide]
+    got = ml.mlstm_parallel(*views, F, i)
+    want = ml.mlstm_parallel(q, k, v, F, i)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

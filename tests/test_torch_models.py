@@ -213,7 +213,7 @@ def test_serve_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "hymba-1.5b",
-                                  "whisper-tiny", "xlstm-350m"])
+                                  "whisper-tiny"])
 def test_build_model_raises_for_unported_family(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(configs.get_config(arch).reduced(), device="cpu")

@@ -1,0 +1,222 @@
+"""The port's xlstm-350m (prefill and decode) against the JAX reference, on
+the CPU.
+
+``reduced()`` xlstm-350m (4 layers = 2 groups of one mLSTM and one sLSTM
+block, d_model 256, 2 heads of 32, float32 compute) is built by both
+packages; the reference's params cross over through
+``repro_torch.convert.params_from_reference``, so both compute the same
+function, and numpy-seeded tokens go through both:
+
+  * ``prefill`` with K6 off and on (on CPU tensors K6 is its plain
+    version) against the reference's ``prefill``, rtol/atol 2e-4; one K6
+    entry-point call per mLSTM block with K6 on, none with it off, and no
+    kernel launch on the CPU.  A second case sets ``q_chunk`` below S so
+    that the query-chunked branch runs on both sides;
+  * ``decode_step`` over 8 positions against the reference's (2e-4) and
+    against the port's own prefill (2e-2, as ``tests/test_arch_smoke.py``);
+  * the greedy tokens of ``repro_torch.launch.serve``'s loop against the
+    reference serve loop's, equal, and the serve CLI on the CPU.
+
+The mLSTM's signed denominator ``max(|sum_s S[t,s]|, exp(-m))`` can be
+small beside its terms, so rounding in the products ahead of it is
+amplified with depth and length: at S = 1024 the reference's own float32
+prefill is 2.1e-3 from a float64 evaluation of the same model, and two
+float32 implementations cannot agree within 2e-4 there.  That case is
+held against float64 instead
+(``test_long_prefill_no_farther_from_float64_than_the_reference``).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.models import build_model as ref_build_model
+from repro_torch import configs
+from repro_torch.convert import params_from_reference
+from repro_torch.kernels import launch_counts
+from repro_torch.launch import serve
+from repro_torch.models import build_model, ssm
+from test_torch_models import _decode, _ref_serve_loop
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+ARCH = "xlstm-350m"
+
+
+@pytest.fixture(scope="module")
+def built():
+    """(ref model, ref params, port model, port params) per knob set,
+    built once per module."""
+    memo = {}
+
+    def get(**knobs):
+        key = tuple(sorted(knobs.items()))
+        if key not in memo:
+            rcfg = dataclasses.replace(ref_get_config(ARCH).reduced(),
+                                       **knobs)
+            cfg = dataclasses.replace(configs.get_config(ARCH).reduced(),
+                                      **knobs)
+            ref = ref_build_model(rcfg, max_seq=256)
+            rparams = ref.init(jax.random.PRNGKey(0))
+            tree = jax.tree.map(np.asarray, rparams)
+            memo[key] = (ref, rparams, build_model(cfg, 256, device="cpu"),
+                         params_from_reference(tree, cfg, "cpu"))
+        return memo[key]
+
+    return get
+
+
+def _tokens(cfg, B, S, seed=1):
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab, (B, S))
+    return ({"tokens": jnp.asarray(toks, jnp.int32)},
+            {"tokens": torch.tensor(toks, dtype=torch.int32)})
+
+
+@pytest.fixture
+def count_k6(monkeypatch):
+    """Counts the model's calls of the K6 entry point and of the
+    query-chunked block."""
+    calls = {"mlstm": 0, "block": 0}
+    real_k6, real_block = ssm.kops.mlstm, ssm._mlstm_parallel_block
+
+    def k6(*args, **kw):
+        calls["mlstm"] += 1
+        return real_k6(*args, **kw)
+
+    def block(*args, **kw):
+        calls["block"] += 1
+        return real_block(*args, **kw)
+
+    monkeypatch.setattr(ssm.kops, "mlstm", k6)
+    monkeypatch.setattr(ssm, "_mlstm_parallel_block", block)
+    return calls
+
+
+def _n_mlstm(cfg):
+    return cfg.n_layers // cfg.slstm_every * (cfg.slstm_every - 1)
+
+
+@pytest.mark.parametrize("S,q_chunk", [(64, 512), (128, 64)])
+@pytest.mark.parametrize("k6", [False, True])
+def test_prefill_matches_reference(built, count_k6, k6, S, q_chunk):
+    ref, rparams, port, params = built(use_flash_kernel=k6, q_chunk=q_chunk)
+    rb, pb = _tokens(port.config, 2, S)
+    want = np.asarray(jax.jit(ref.prefill)(rparams, rb), np.float32)
+    before = launch_counts()
+    got = port.prefill(params, pb)
+    assert launch_counts() == before         # CPU: plain versions only
+    assert got.shape == (2, S, port.config.vocab)
+    n = _n_mlstm(port.config)
+    chunks = S // q_chunk if S > q_chunk else 1
+    assert count_k6 == ({"mlstm": n, "block": 0} if k6
+                        else {"mlstm": 0, "block": n * chunks})
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def _float64(tree):
+    return {k: _float64(v) if isinstance(v, dict) else v.double()
+            for k, v in tree.items()}
+
+
+def test_long_prefill_no_farther_from_float64_than_the_reference(
+        built, monkeypatch):
+    """S = 1024 (two 512-row query chunks on both sides): the port's
+    float32 prefill is no farther from a float64 evaluation of the same
+    model (the port's code with every tensor in float64) than the
+    reference's float32 prefill is."""
+    ref, rparams, port, params = built()
+    rb, pb = _tokens(port.config, 2, 1024)
+    ref32 = np.asarray(jax.jit(ref.prefill)(rparams, rb), np.float64)
+    port32 = port.prefill(params, pb).double().numpy()
+    cfg64 = dataclasses.replace(port.config, param_dtype="float64",
+                                compute_dtype="float64")
+    monkeypatch.setattr(torch.Tensor, "float", torch.Tensor.double)
+    exact = build_model(cfg64, 256, device="cpu").prefill(
+        _float64(params), pb).numpy()
+    assert exact.dtype == np.float64
+    ref_err = np.abs(ref32 - exact).max()
+    port_err = np.abs(port32 - exact).max()
+    assert port_err <= ref_err, (port_err, ref_err)
+
+
+def test_loss_matches_reference(built):
+    ref, rparams, port, params = built()
+    rb, pb = _tokens(port.config, 2, 64)
+    want, _ = jax.jit(ref.loss_fn)(rparams, rb)
+    got, metrics = port.loss_fn(params, pb)
+    np.testing.assert_allclose(float(got), float(want), **TOL)
+    assert float(metrics["loss"]) == float(got)
+
+
+def test_decode_matches_reference_and_prefill(built):
+    ref, rparams, port, params = built()
+    toks = np.random.default_rng(2).integers(0, port.config.vocab, (2, 8))
+    want, got = _decode(ref, rparams, port, params, toks, slots=16)
+    np.testing.assert_allclose(got, want, **TOL)
+    full = port.prefill(params, {"tokens": torch.tensor(toks)}).numpy()
+    np.testing.assert_allclose(got, full, rtol=2e-2, atol=2e-2)
+
+
+def test_state_layout_matches_reference(built):
+    """The stacked [G, n_m, ...] / [G, ...] params and decode state have
+    the reference's names, shapes and dtypes, and the params cross over
+    bit for bit."""
+    ref, rparams, port, params = built()
+    cfg = port.config
+
+    def flat(tree, path=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{path}/{k}")
+            else:
+                yield f"{path}/{k}", v
+
+    ref_p = dict(flat(jax.tree.map(np.asarray, rparams)))
+    own = dict(flat(port.init(0)))
+    carried = dict(flat(params))
+    assert sorted(own) == sorted(ref_p) == sorted(carried)
+    for name, a in ref_p.items():
+        assert tuple(own[name].shape) == a.shape, name
+        assert str(own[name].dtype) == f"torch.{a.dtype}", name
+        np.testing.assert_array_equal(carried[name].numpy(), a)
+    assert ref_p["/mlstm/w_qkv"].shape[:2] == (2, 1)
+    ref_c = dict(flat(jax.tree.map(np.asarray, ref.init_cache(3, 8))))
+    own_c = dict(flat(port.init_cache(3, 8)))
+    assert sorted(own_c) == sorted(ref_c)
+    for name, a in ref_c.items():
+        assert tuple(own_c[name].shape) == a.shape, name
+        np.testing.assert_array_equal(own_c[name].numpy(), a)
+    assert cfg.slstm_every == 2 and cfg.n_layers == 4
+
+
+def test_serve_loop_tokens_equal_reference(built):
+    ref, rparams, port, params = built()
+    rng = np.random.default_rng(0)                 # the CLI's prompt seed
+    prompt = rng.integers(0, port.config.vocab, (4, 16))
+    want = _ref_serve_loop(ref, rparams, prompt, gen=32)
+    res = serve.serve_loop(port, params,
+                           torch.tensor(prompt, dtype=torch.int32), 32)
+    assert res["tokens"].dtype == torch.int32
+    np.testing.assert_array_equal(res["tokens"].numpy(), want)
+    assert res["logits"].shape == (4, port.config.vocab)
+
+
+def test_serve_cli_on_cpu(capsys):
+    res = serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                      "--gen", "4"])
+    out = capsys.readouterr().out
+    assert f"[serve] {ARCH}: batch 4, prompt 16, generated 4" in out
+    assert "tok/s" in out and "sample tokens (seq 0)" in out
+    assert res["tokens"].shape == (4, 4)
+
+
+def test_build_model_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(configs.get_config(ARCH))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", ARCH])
