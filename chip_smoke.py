@@ -55,11 +55,33 @@ Phases (any failure exits non-zero before the result line):
      S = 1024) timed with K6 on and off, their logits compared, the
      mLSTM / sLSTM split of its wall time and the device's busy share;
      then the serve CLI at its defaults.  K6 must launch exactly once per
-     mLSTM block (18) of every K6 prefill.
+     mLSTM block (18) of every K6 prefill;
+  7. RMSNorm and SwiGLU kernels -- K7 and K8 against their plain versions
+     in float32 (2e-5) and bf16 (2e-2) at the reference tests' shapes
+     (K7 rows x d (8, 128), (256, 512), (1024, 4096), (64, 3584); K8
+     M x K x N (128, 512, 128), (256, 1024, 512), (128, 256, 384)), ragged
+     shapes (K7 (100, 3000), (37, 1001) and a strided view; K8
+     (100, 300, 200) and a column-slice weight), the decode shape (4 rows)
+     and K8 with |gate| ~ 100; timed at llama3.2-1b's bf16 prefill shape
+     (B = 4 x S = 1024 tokens, d_model 2048, d_ff 8192) beside their plain
+     versions, ``F.rms_norm`` for K7 (the yardstick only: the port never
+     calls it) and, for K8, which no single PyTorch call computes, the
+     three-call cuBLAS composite ``F.silu(x @ Wg) * (x @ Wu)``;
+  8. entry points -- ``ops.rmsnorm`` and ``ops.swiglu`` (the reference's
+     public entry points of K7 and K8; no model of either package calls
+     them) on llama3.2-1b's own activations at full width: a float32
+     prefill (B = 2, S = 512) and a bf16 prefill (B = 4, S = 1024) in which
+     every norm input (ln1, ln2 of 16 layers and ln_f: 33 K7 launches) and
+     every MLP input (16 K8 launches, the weights cast as ``mlp`` casts
+     them) also goes through the entry point, held against its plain
+     version (2e-5 f32, 2e-2 bf16); the distance to the model's in-line
+     norm and gate math is printed, not gated.  The model's own results
+     flow on, so the logits must be ``torch.equal`` to an unpatched
+     prefill's.
 
 float32 matrix products run in full float32 throughout
 (``torch.backends.cuda.matmul.allow_tf32 = False``, set in ``main``): the
-float32 gates compare K5 with cuBLAS products.
+float32 gates compare K5 and K8 with cuBLAS products.
 
 The last lines are the per-kernel JSON summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -81,6 +103,9 @@ BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 SERVE_ATTN = (4, 32, 8, 1024, 64)
 # K6 at the xlstm-350m prefill shape: batch, heads, seq, hd.
 XLSTM_MLSTM = (4, 4, 1024, 512)
+# K7 and K8 at the llama3.2-1b bf16 prefill: tokens (B 4 x S 1024),
+# d_model, d_ff.
+SERVE_MLP = (4096, 2048, 8192)
 # The §7 heterogeneous variant: two speed tiers, shared vs isolated uplinks.
 HETERO = dict(speed_tiers=((50.0, 0.5), (12.5, 0.5)),
               link_classes=((1.25, "shared", 0.5), (1.25, "isolated", 0.5)))
@@ -547,6 +572,129 @@ def mlstm_phase(torch, np, dev) -> dict:
         "equal": False}
 
 
+def rmsnorm_swiglu_phase(torch, np, dev) -> list[dict]:
+    """K7 and K8 against their plain versions on the card, in float32 and
+    bf16 at the reference tests' shapes, ragged and decode shapes; times
+    at the llama3.2-1b bf16 prefill shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import swiglu as sg
+
+    def randn(rng, shape, dtype, scale=1.0, shift=0.0):
+        a = rng.standard_normal(shape) * scale + shift
+        return torch.tensor(a, dtype=torch.float32, device=dev).to(dtype)
+
+    def check(label, got, want, tol):
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if got.shape != want.shape or got.dtype != want.dtype or \
+                not torch.isfinite(got).all() or not torch.allclose(
+                    got.float(), want.float(), rtol=tol, atol=tol):
+            fail(f"{label}: max abs err {err} against its plain version "
+                 f"exceeds {tol}")
+        print(f"kernel {label}: within {tol} of plain, max abs err {err}",
+              flush=True)
+        return err
+
+    def norm_case(label, x, s, tol):
+        check(f"rmsnorm {label}", rn.rmsnorm(x, s), rn.rmsnorm_plain(x, s),
+              tol)
+
+    def gate_case(label, x, wg, wu, tol):
+        check(f"swiglu {label}", sg.swiglu(x, wg, wu),
+              sg.swiglu_plain(x, wg, wu), tol)
+
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        name = str(dtype).rsplit(".", 1)[-1]
+        for rows, d in ((8, 128), (256, 512), (1024, 4096), (64, 3584),
+                        (100, 3000), (37, 1001), (4, 2048)):
+            rng = np.random.default_rng(rows + d)
+            norm_case(f"({rows}, {d}) {name}", randn(rng, (rows, d), dtype),
+                      randn(rng, (d,), dtype, shift=1.0), tol)
+        wide = randn(np.random.default_rng(7), (64, 520), dtype)
+        norm_case(f"(64, 512) view of row stride 520 {name}", wide[:, 4:516],
+                  randn(np.random.default_rng(8), (512,), dtype, shift=1.0),
+                  tol)
+        for M, K, N in ((128, 512, 128), (256, 1024, 512), (128, 256, 384),
+                        (100, 300, 200), (4, 2048, 8192)):
+            rng = np.random.default_rng(M + K + N)
+            gate_case(f"({M}, {K}, {N}) {name}",
+                      randn(rng, (M, K), dtype, 0.1),
+                      randn(rng, (K, N), dtype, 0.05),
+                      randn(rng, (K, N), dtype, 0.05), tol)
+        rng = np.random.default_rng(9)
+        x = randn(rng, (96, 256), dtype, 0.1)
+        wg, wu = randn(rng, (256, 200), dtype, 0.05), \
+            randn(rng, (256, 200), dtype, 0.05)
+        gate_case(f"(96, 256, 136) column-slice weights {name}", x,
+                  wg[:, 32:168], wu[:, 64:], tol)
+        # |gate| up to ~180 from small integers (and u in 1/64ths): every
+        # sum is exact in fp32 in any order, so the case measures silu at
+        # extreme g and not sum order amplified by |g|.
+        gate_case(f"(64, 256, 128) |gate| ~ 100 {name}",
+                  *(torch.tensor(a, dtype=dtype, device=dev) for a in (
+                      rng.integers(-2, 3, (64, 256)),
+                      rng.integers(-3, 4, (256, 128)),
+                      rng.integers(-3, 4, (256, 128)) / 64)), tol)
+
+    rows, d, ff = SERVE_MLP
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(5)
+    x, s = randn(rng, (rows, d), bf16), randn(rng, (d,), bf16, shift=1.0)
+    err7 = check(f"rmsnorm serving shape ({rows}, {d}) bf16",
+                 rn.rmsnorm(x, s), rn.rmsnorm_plain(x, s), 2e-2)
+    if not torch.allclose(F.rms_norm(x, (d,), weight=s, eps=1e-6).float(),
+                          rn.rmsnorm_plain(x, s).float(), rtol=2e-2,
+                          atol=2e-2):
+        fail("F.rms_norm disagrees with K7's plain version: the yardstick "
+             "computes another function")
+    ms7 = time_ms(torch, lambda: rn.rmsnorm(x, s))
+    plain7 = time_ms(torch, lambda: rn.rmsnorm_plain(x, s))
+    lib7 = time_ms(torch, lambda: F.rms_norm(x, (d,), weight=s, eps=1e-6))
+    # x read and y written once (bf16), scale read once (bf16); a square,
+    # an add, two multiplies per element.
+    bytes7 = 2 * (2 * rows * d + d)
+    ops7 = 4 * rows * d
+    b7_ms, o7_ms = bytes7 / HBM_BYTES_PER_S * 1e3, ops7 / FP32_OPS_PER_S * 1e3
+    print(f"kernel rmsnorm bf16 ({rows}, {d}): {ms7:.6f} ms/launch, plain "
+          f"{plain7:.6f} ms, F.rms_norm {lib7:.6f} ms, bytes {bytes7}, ops "
+          f"{ops7}, bound {max(b7_ms, o7_ms):.6f} ms", flush=True)
+
+    xm = randn(rng, (rows, d), bf16)
+    wg, wu = (randn(rng, (d, ff), bf16, d ** -0.5) for _ in range(2))
+    err8 = check(f"swiglu serving shape ({rows}, {d}, {ff}) bf16",
+                 sg.swiglu(xm, wg, wu), sg.swiglu_plain(xm, wg, wu), 2e-2)
+    ms8 = time_ms(torch, lambda: sg.swiglu(xm, wg, wu), reps=10)
+    plain8 = time_ms(torch, lambda: sg.swiglu_plain(xm, wg, wu), reps=10)
+    composite = time_ms(torch, lambda: F.silu(xm @ wg) * (xm @ wu), reps=50)
+    # x, w_gate, w_up read and out written once (bf16); two products.
+    bytes8 = 2 * (rows * d + 2 * d * ff + rows * ff)
+    ops8 = 4 * rows * d * ff
+    b8_ms, o8_ms = bytes8 / HBM_BYTES_PER_S * 1e3, ops8 / BF16_OPS_PER_S * 1e3
+    print(f"kernel swiglu bf16 ({rows}, {d}, {ff}): {ms8:.6f} ms/launch, "
+          f"plain {plain8:.6f} ms, bytes {bytes8}, ops {ops8}, bound "
+          f"{max(b8_ms, o8_ms):.6f} ms", flush=True)
+    print(f"composite (not one PyTorch call, so not library_ms): "
+          f"F.silu(x @ Wg) * (x @ Wu) in bf16 through cuBLAS, three calls, "
+          f"{composite:.6f} ms at ({rows}, {d}, {ff})", flush=True)
+
+    def row(name, replaces, err, ms, plain_ms, b_ms, o_ms, lib, n_bytes):
+        return {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "library_ms": lib, "bytes": n_bytes, "entry": name,
+            "equal": False}
+
+    return [row("rmsnorm", "src/repro/kernels/rmsnorm.py:19", err7, ms7,
+                plain7, b7_ms, o7_ms, lib7, bytes7),
+            row("swiglu", "src/repro/kernels/swiglu.py:20", err8, ms8,
+                plain8, b8_ms, o8_ms, None, bytes8)]
+
+
 def device_busy(torch, fn) -> tuple[float, list]:
     """Device busy seconds of one call of ``fn`` under torch.profiler (CUDA
     activity only) and the busiest items."""
@@ -887,6 +1035,110 @@ def xlstm_phase(torch, np, kernels, totals: dict, dev) -> None:
     print(f"xlstm launches {counts}", flush=True)
 
 
+def entry_point_phase(torch, np, kernels, totals: dict, dev) -> None:
+    """``ops.rmsnorm`` and ``ops.swiglu`` on llama3.2-1b's own activations
+    at full width: each norm and MLP input of a float32 and a bf16 prefill
+    also goes through the entry point and is held against the kernel's
+    plain version; the model's own results flow on.  The counters are
+    zeroed just before and read just after."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import swiglu as sg
+    from repro_torch.models import build_model, transformer
+
+    base = dataclasses.replace(get_config("llama3.2-1b"),
+                               use_flash_kernel=True)
+    L, V = base.n_layers, base.vocab
+    rng = np.random.default_rng(3)
+    norm, mlp = transformer.rms_norm, transformer.mlp
+    worst: dict = {}
+
+    def note(key, got, want):
+        worst[key] = max(worst.get(key, 0.0),
+                         float((got.float() - want.float()).abs().max()))
+
+    def held(label, got, want, tol):
+        note(label, got, want)
+        if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+            fail(f"entry points: {label} max abs err {worst[label]} against "
+                 f"its plain version exceeds {tol}")
+
+    def checked_norm(x, scale, eps, cast_early=False):
+        y = norm(x, scale, eps, cast_early)
+        tol = 2e-2 if x.dtype == torch.bfloat16 else 2e-5
+        got = ops.rmsnorm(x, scale, eps)
+        held("ops.rmsnorm", got, rn.rmsnorm_plain(x, scale, eps), tol)
+        note("ops.rmsnorm vs model rms_norm", got, y)
+        return y
+
+    def checked_mlp(p, x, kind):
+        y = mlp(p, x, kind)
+        cd = x.dtype
+        tol = 2e-2 if cd == torch.bfloat16 else 2e-5
+        wg, wu = p["w_gate"].to(cd), p["w_up"].to(cd)
+        got = ops.swiglu(x, wg, wu)
+        held("ops.swiglu", got, sg.swiglu_plain(x, wg, wu), tol)
+        note("ops.swiglu vs model gate", got, F.silu(x @ wg) * (x @ wu))
+        return y
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    params = None
+    for dtype, B, S in (("float32", 2, 512), ("bfloat16", 4, 1024)):
+        model = build_model(dataclasses.replace(base, compute_dtype=dtype),
+                            device=dev)
+        if params is None:
+            params = model.init(0)
+        batch = {"tokens": torch.tensor(rng.integers(0, V, (B, S)),
+                                        dtype=torch.int32, device=dev)}
+        want = model.prefill(params, batch)
+        before = kernels.launch_counts()
+        worst.clear()
+        holder = {}
+        transformer.rms_norm, transformer.mlp = checked_norm, checked_mlp
+        try:
+            t = wall_s(torch, lambda: holder.update(
+                got=model.prefill(params, batch)))
+        finally:
+            transformer.rms_norm, transformer.mlp = norm, mlp
+        got = holder.pop("got")
+        n7 = kernels.LAUNCHES["rmsnorm"] - before["rmsnorm"]
+        n8 = kernels.LAUNCHES["swiglu"] - before["swiglu"]
+        if (n7, n8) != (2 * L + 1, L):
+            fail(f"entry points {dtype}: K7 launched {n7} times and K8 {n8} "
+                 f"in one prefill, expected {2 * L + 1} and {L}")
+        if not torch.equal(got, want):
+            fail(f"entry points {dtype}: the checked prefill's logits differ "
+                 "from an unpatched prefill's")
+        if not bool(torch.isfinite(got).all()):
+            fail(f"entry points {dtype}: non-finite logits")
+        print(f"entry points llama3.2-1b {dtype} B={B} S={S} prefill, "
+              f"{n7} ops.rmsnorm and {n8} ops.swiglu calls on its own "
+              f"activations: max abs err vs plain "
+              f"{worst['ops.rmsnorm']} (K7), {worst['ops.swiglu']} (K8); "
+              f"reported, not gated: vs the model's in-line rms_norm "
+              f"{worst['ops.rmsnorm vs model rms_norm']}, vs its in-line "
+              f"gate math {worst['ops.swiglu vs model gate']}; logits "
+              f"torch.equal to an unpatched prefill; checked prefill "
+              f"{t:.6f} s", flush=True)
+        del want, got, model
+    del params
+    torch.cuda.empty_cache()
+    counts = kernels.launch_counts()
+    for name, n in counts.items():
+        totals[name] += n
+    print(f"entry-point phase {time.perf_counter() - t_phase:.6f} s wall "
+          f"(params init included); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+          f"{counts}", flush=True)
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -928,10 +1180,12 @@ def main() -> None:
     rows = kernel_phase(torch, np, rt, dev)
     rows.append(flash_phase(torch, np, dev))
     rows.append(mlstm_phase(torch, np, dev))
+    rows.extend(rmsnorm_swiglu_phase(torch, np, dev))
     totals = dict.fromkeys(kernels.LAUNCHES, 0)
     end_to_end_phase(torch, rt, kernels, totals)
     serving_phase(torch, np, kernels, totals, dev)
     xlstm_phase(torch, np, kernels, totals, dev)
+    entry_point_phase(torch, np, kernels, totals, dev)
     for row in rows:
         row["launches"] = totals[row["name"]]
         if row["launches"] <= 0:

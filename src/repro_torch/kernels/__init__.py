@@ -15,7 +15,13 @@ whose kernel fails to build or launch raises.
     (model layout through :mod:`repro_torch.kernels.ops`);
   * :mod:`repro_torch.kernels.mlstm` -- ``mlstm_parallel``: the xLSTM
     mLSTM parallel form, the xlstm models' prefill (model layout through
-    :mod:`repro_torch.kernels.ops`).
+    :mod:`repro_torch.kernels.ops`);
+  * :mod:`repro_torch.kernels.rmsnorm` -- ``rmsnorm``: fused RMSNorm of
+    each row;
+  * :mod:`repro_torch.kernels.swiglu` -- ``swiglu``: the fused SwiGLU gate
+    ``silu(x @ w_gate) * (x @ w_up)`` as one dual product.  These two sit
+    behind ``ops.rmsnorm`` / ``ops.swiglu`` (any leading shape), the
+    reference's public entry points; as there, no model calls them.
 
 :data:`LAUNCHES` counts kernel launches per kernel (a wrapper adds one
 where it launches, and nowhere else), so a run can show that it went
@@ -27,7 +33,7 @@ __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts"]
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
 LAUNCHES = {"tau": 0, "tau_het": 0, "pool": 0, "score": 0,
-            "flash_attention": 0, "mlstm": 0}
+            "flash_attention": 0, "mlstm": 0, "rmsnorm": 0, "swiglu": 0}
 
 
 def launch_counts() -> dict[str, int]:

@@ -9,8 +9,9 @@ library, all at once, and waits for them.
 
 ``-fmad=false`` is part of the scheduler kernels' bit-identity contract:
 they must round every float64 product and sum separately, as NumPy does.
-The attention and mLSTM kernels, held to a tolerance, fuse their products
-with explicit ``fmaf`` calls, which the flag leaves alone.
+The attention, mLSTM, RMSNorm and SwiGLU kernels, held to a tolerance,
+fuse their products with explicit ``fmaf`` calls, which the flag leaves
+alone.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("tau", "placement", "flash_attention", "mlstm")
+SOURCES = ("tau", "placement", "flash_attention", "mlstm", "rmsnorm",
+           "swiglu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -6,7 +6,10 @@ size; the port's K5 kernel maps each query head to its kv head itself and
 masks the ragged edge, so this wrapper only hands it transposed views
 (no copies).  ``mlstm`` does the same for the K6 kernel, which the
 reference's ``ops`` does not reach (its xLSTM model runs the jnp form).
-``ops.rmsnorm`` and ``ops.swiglu`` wait for the K7 and K8 kernels.
+``rmsnorm`` and ``swiglu`` take any leading shape and hand the K7 and K8
+kernels 2-D views (no copies for contiguous input); the reference's
+block-size halving for ragged row counts is a TPU tiling detail, since
+the kernels mask their edges.
 """
 from __future__ import annotations
 
@@ -14,8 +17,10 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mlstm as _ml
+from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import swiglu as _sg
 
-__all__ = ["flash_attention", "mlstm"]
+__all__ = ["flash_attention", "mlstm", "rmsnorm", "swiglu"]
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -42,3 +47,21 @@ def mlstm(q, k, v, F, i_pre):
                        v.transpose(1, 2), F.transpose(1, 2),
                        i_pre.transpose(1, 2), out=y.transpose(1, 2))
     return y
+
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    """RMSNorm over the last dim of x [..., d] with scale [d].
+
+    Returns x's shape and dtype: on a CUDA tensor through the K7 kernel, on
+    a CPU tensor through its plain version."""
+    return _rn.rmsnorm(x.reshape(-1, x.shape[-1]), scale, eps).reshape(
+        x.shape)
+
+
+def swiglu(x, w_gate, w_up):
+    """``silu(x @ w_gate) * (x @ w_up)`` for x [..., K] and w [K, N].
+
+    Returns [..., N] of x's dtype: on a CUDA tensor through the K8 kernel,
+    on a CPU tensor through its plain version."""
+    out = _sg.swiglu(x.reshape(-1, x.shape[-1]), w_gate, w_up)
+    return out.reshape(*x.shape[:-1], w_gate.shape[-1])

@@ -2,7 +2,9 @@
 
 The port of ``repro/models/layers.py``, function for function:
 
-  * ``rms_norm``          -- RMSNorm in fp32 (K7 waits; plain torch here)
+  * ``rms_norm``          -- RMSNorm in fp32, in plain torch as in the
+                             reference (K7 sits behind
+                             ``kernels.ops.rmsnorm``, which no model calls)
   * ``apply_rope``        -- rotary embeddings, "full" (llama) or "half"
                              (chatglm 2d-rope: only the first half of the
                              head dim rotates)
@@ -11,7 +13,9 @@ The port of ``repro/models/layers.py``, function for function:
                              with absolute slot positions (supports rolling
                              caches); prefill attention goes through the K5
                              kernel when ``cfg.use_flash_kernel``
-  * ``mlp``               -- swiglu / geglu / gelu feed-forward
+  * ``mlp``               -- swiglu / geglu / gelu feed-forward, in plain
+                             torch in the compute dtype as in the
+                             reference (K8 is ``kernels.ops.swiglu``)
 
 One card has no mesh, so the reference's ``shard_hint`` is the identity
 and is left out.  Windows are Python ints here (the port runs its layer

@@ -8,9 +8,10 @@ reference, so it runs on a machine with the card but no JAX::
 
 Inputs are made from numpy seeds.  The scheduler kernels (K1-K4) are
 held ``torch.equal`` to their plain versions (float64, bit for bit); the
-attention kernel K5 within 2e-5 in float32 and 2e-2 in bfloat16, the
-mLSTM kernel K6 within 2e-4 and 3e-2, the tolerances of the reference's
-kernel tests (fp32 sums in another order).
+attention kernel K5, the RMSNorm kernel K7 and the SwiGLU kernel K8
+within 2e-5 in float32 and 2e-2 in bfloat16, the mLSTM kernel K6 within
+2e-4 and 3e-2, the tolerances of the reference's kernel tests (fp32 sums
+in another order).
 """
 import numpy as np
 import pytest
@@ -21,6 +22,8 @@ from repro_torch.core.contention import _job_terms
 from repro_torch.kernels import LAUNCHES, ops, placement, tau
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mlstm as ml
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import swiglu as sg
 
 HETERO = dict(speed_tiers=((50.0, 0.5), (12.5, 0.5)),
               link_classes=((1.25, "shared", 0.5), (1.25, "isolated", 0.5)))
@@ -332,3 +335,105 @@ def test_mlstm_kernel_reads_unaligned_views(cuda, dtype):
     got = ml.mlstm_parallel(*views, F, i)
     want = ml.mlstm_parallel(q, k, v, F, i)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _randn(dev, rng, shape, dtype, scale=1.0, shift=0.0):
+    a = rng.standard_normal(shape) * scale + shift
+    return _on(dev, a, torch.float32).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [
+    (8, 128), (256, 512), (1024, 4096), (64, 3584),   # reference shapes
+    (100, 3000), (37, 1001), (4, 2048),               # ragged, decode
+])
+def test_rmsnorm_kernel_close_to_plain(cuda, rows, d, dtype):
+    rng = np.random.default_rng(rows + d)
+    x = _randn(cuda, rng, (rows, d), dtype)
+    s = _randn(cuda, rng, (d,), dtype, shift=1.0)
+    before = LAUNCHES["rmsnorm"]
+    got = rn.rmsnorm(x, s)
+    want = rn.rmsnorm_plain(x, s)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rmsnorm"] == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [
+    (128, 512, 128), (256, 1024, 512), (128, 256, 384),   # reference shapes
+    (100, 300, 200), (4, 2048, 8192), (1, 7, 3),          # ragged, decode
+])
+def test_swiglu_kernel_close_to_plain(cuda, M, K, N, dtype):
+    rng = np.random.default_rng(M + K + N)
+    x = _randn(cuda, rng, (M, K), dtype, 0.1)
+    wg, wu = (_randn(cuda, rng, (K, N), dtype, 0.05) for _ in range(2))
+    before = LAUNCHES["swiglu"]
+    got = sg.swiglu(x, wg, wu)
+    want = sg.swiglu_plain(x, wg, wu)
+    torch.cuda.synchronize()
+    assert LAUNCHES["swiglu"] == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swiglu_kernel_extreme_gate(cuda, dtype):
+    """|gate| up to ~190: silu gives -0 for very negative g, not NaN.
+    Small integers (u in 1/64ths) make every sum exact in fp32 in any
+    order, so only silu and the product are compared."""
+    rng = np.random.default_rng(21)
+    x, wg, wu = (_on(cuda, a, dtype) for a in (
+        rng.integers(-2, 3, (64, 256)), rng.integers(-3, 4, (256, 128)),
+        rng.integers(-3, 4, (256, 128)) / 64))
+    got = sg.swiglu(x, wg, wu)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), sg.swiglu_plain(x, wg, wu).float(),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_swiglu_entry_points_read_views(cuda, dtype):
+    """ops.rmsnorm / ops.swiglu take any leading shape; the wrappers read a
+    row-strided x and column slices of the weights in place."""
+    rng = np.random.default_rng(13)
+    x = _randn(cuda, rng, (2, 3, 50, 520), dtype)[..., 4:516]
+    s = _randn(cuda, rng, (512,), dtype, shift=1.0)
+    got = ops.rmsnorm(x, s)
+    want = rn.rmsnorm_plain(x.reshape(-1, 512), s).reshape(x.shape)
+    assert got.shape == x.shape
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    w = _randn(cuda, rng, (512, 300), dtype, 0.05)
+    wg, wu = w[:, :136], w[:, 150:286]
+    got = ops.swiglu(want, wg, wu)
+    assert got.shape == (2, 3, 50, 136)
+    torch.testing.assert_close(
+        got.float(), sg.swiglu_plain(want.reshape(-1, 512), wg, wu)
+        .reshape(got.shape).float(), **_tol(dtype))
+
+
+def test_rmsnorm_swiglu_cuda_tensors_never_take_the_plain_path(
+        cuda, monkeypatch):
+    def refuse(*args, **kw):
+        raise AssertionError("plain version called on a CUDA tensor")
+
+    monkeypatch.setattr(rn, "rmsnorm_plain", refuse)
+    monkeypatch.setattr(sg, "swiglu_plain", refuse)
+    rng = np.random.default_rng(5)
+    x = _randn(cuda, rng, (16, 256), torch.bfloat16)
+    w = _randn(cuda, rng, (256, 64), torch.bfloat16)
+    before = (LAUNCHES["rmsnorm"], LAUNCHES["swiglu"])
+    ops.rmsnorm(x, torch.ones(256, device=cuda))
+    ops.swiglu(x, w, w)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["rmsnorm"], LAUNCHES["swiglu"]) == \
+        (before[0] + 1, before[1] + 1)
+    with pytest.raises(TypeError, match="dtype"):
+        sg.swiglu(x, w.float(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        sg.swiglu(x, w.t().contiguous().t(), w)
+    with pytest.raises(TypeError, match="dtype"):
+        rn.rmsnorm(x.half(), torch.ones(256, device=cuda))
+    with pytest.raises(ValueError, match="shape"):
+        rn.rmsnorm(x, torch.ones(128, device=cuda))
