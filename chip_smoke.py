@@ -19,9 +19,12 @@ Phases (any failure exits non-zero before the result line):
      the llama3.2-1b serving shape (B = 4, H = 32, K = 8, S = 1024,
      hd = 64, in the model layout the prefill hands it) and on small
      cases (window, softcap, non-causal, ragged S, kv_len, hd 32/128/256),
-     and timed beside its plain version and
+     each in both dtypes; its tiles per head dim and the tensor-core
+     (``HMMA``) and asynchronous-copy (``LDGSTS``) instructions of its
+     bf16 kernels in ``cuobjdump -sass`` are printed (no ``HMMA`` fails);
+     timed in bf16 beside its plain version and
      ``F.scaled_dot_product_attention`` (the yardstick only: the port
-     never calls it);
+     never calls it), and in float32;
   3. end to end -- ``run_scenario(..., device="cuda")`` on the §7 Philly
      setting (160 jobs) for {homogeneous, heterogeneous} x {incremental,
      batched}, each held bitwise against the port's ``device="cpu"`` run
@@ -33,7 +36,9 @@ Phases (any failure exits non-zero before the result line):
      128256), random weights from a seeded ``torch.Generator``, K5 on:
      float32 prefill (B = 2, S = 512) with K5 against K5 off (2e-4) and 16
      stepped decode positions against it (2e-2); bf16 prefill (B = 4,
-     S = 1024) timed and compared with K5 off; the device's busy share of
+     S = 1024) timed and compared with K5 off, and both held against a
+     float32 K5-off prefill of the same tokens: K5 on may be no farther
+     from it than 1.5x K5 off's distance; the device's busy share of
      a prefill and of a decode window (torch.profiler); then the
      ``repro_torch.launch.serve`` CLI loop at its defaults (batch 4, prompt
      16, 32 tokens).  K5 must launch once per layer of every K5 prefill;
@@ -60,7 +65,8 @@ Phases (any failure exits non-zero before the result line):
      in float32 (2e-5) and bf16 (2e-2) at the reference tests' shapes
      (K7 rows x d (8, 128), (256, 512), (1024, 4096), (64, 3584); K8
      M x K x N (128, 512, 128), (256, 1024, 512), (128, 256, 384)), ragged
-     shapes (K7 (100, 3000), (37, 1001) and a strided view; K8
+     shapes (K7 (100, 3000), (37, 1001), rows of several warps (16, 16384),
+     (4, 40000), (3, 9001) and a strided view; K8
      (100, 300, 200) and a column-slice weight), the decode shape (4 rows)
      and K8 with |gate| ~ 100; timed at llama3.2-1b's bf16 prefill shape
      (B = 4 x S = 1024 tokens, d_model 2048, d_ff 8192) beside their plain
@@ -458,11 +464,17 @@ def flash_phase(torch, np, dev) -> dict:
         ("hd 128", (1, 320, 4, 1, 128), {}),
         ("hd 256 window 64", (1, 256, 2, 2, 256), dict(window=64)),
     ]
-    for label, (b, s, h, kh, d, *skv), kw in small:
-        check(label, *model_layout(b, s, h, kh, d, torch.float32, seed=s,
-                                   Skv=skv[0] if skv else None), 2e-5, **kw)
-    check("ragged S 200 GQA bf16",
-          *model_layout(2, 200, 8, 2, 64, torch.bfloat16, seed=3), 2e-2)
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        name = str(dtype).rsplit(".", 1)[-1]
+        for label, (b, s, h, kh, d, *skv), kw in small:
+            check(f"{label} {name}", *model_layout(
+                b, s, h, kh, d, dtype, seed=s, Skv=skv[0] if skv else None),
+                tol, **kw)
+    for d in fa.HEAD_DIMS:
+        print(f"kernel flash_attention hd {d}: (BQ, BK) = "
+              f"{fa.tiles(d, torch.bfloat16)} bf16 (tensor cores), "
+              f"{fa.tiles(d, torch.float32)} float32 (CUDA cores)")
+    sass_counts()
 
     q, k, v = bf16
     lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
@@ -476,6 +488,11 @@ def flash_phase(torch, np, dev) -> dict:
                        reps=20)
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True))
+    f32 = [t.float() for t in bf16]
+    f32_ms = time_ms(torch, lambda: fa.flash_attention(*f32), reps=50)
+    print(f"kernel flash_attention float32 {SERVE_ATTN}: {f32_ms:.6f} "
+          f"ms/launch (the CUDA-core kernel)", flush=True)
+    del f32
     n_bytes = 2 * (2 * B * H * S * hd + 2 * B * K * S * hd)
     # QK^T and PV, 2 * hd operations each, over the S (S + 1) / 2 pairs a
     # causal mask keeps.
@@ -495,6 +512,31 @@ def flash_phase(torch, np, dev) -> dict:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms, "bytes": n_bytes,
         "entry": "flash_attention", "equal": False}
+
+
+def sass_counts() -> None:
+    """Count, per K5 kernel in ``cuobjdump -sass`` of the built library,
+    the tensor-core (``HMMA``) and asynchronous-copy (``LDGSTS``, or TMA
+    ``UTMALDG``) instructions; fail if a bf16 kernel has no ``HMMA``."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(tool), "-sass", str(_build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += "HMMA" in line
+            counts[fn][1] += "LDGSTS" in line or "UTMALDG" in line
+    tc = {fn: c for fn, c in counts.items() if "flash_tc_kernel" in fn}
+    for fn, (hmma, ldgsts) in counts.items():
+        print(f"sass {fn}: HMMA {hmma}, LDGSTS/UTMALDG {ldgsts}")
+    if not tc or not all(hmma > 0 for hmma, _ in tc.values()):
+        fail(f"K5: the bf16 kernels lack tensor-core instructions: {tc}")
 
 
 def mlstm_phase(torch, np, dev) -> dict:
@@ -608,7 +650,8 @@ def rmsnorm_swiglu_phase(torch, np, dev) -> list[dict]:
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         name = str(dtype).rsplit(".", 1)[-1]
         for rows, d in ((8, 128), (256, 512), (1024, 4096), (64, 3584),
-                        (100, 3000), (37, 1001), (4, 2048)):
+                        (100, 3000), (37, 1001), (4, 2048), (16, 16384),
+                        (4, 40000), (3, 9001)):
             rng = np.random.default_rng(rows + d)
             norm_case(f"({rows}, {d}) {name}", randn(rng, (rows, d), dtype),
                       randn(rng, (d,), dtype, shift=1.0), tol)
@@ -797,7 +840,19 @@ def serving_phase(torch, np, kernels, totals: dict, dev) -> None:
     print(f"serving bf16 B=4 S=1024 prefill: K5 on {t_on:.6f} s, K5 off "
           f"{t_off:.6f} s; K5 on vs off max abs logit diff {diff}, argmax "
           f"agreement {agree}", flush=True)
-    del lg_on, lg_off
+    # The model's own bf16 rounding is the yardstick: the same tokens
+    # through a float32 K5-off prefill.
+    ref = build_model(dataclasses.replace(cfg32, use_flash_kernel=False),
+                      device=dev).prefill(params, batch)
+    d_on, d_off = (max(float((lg[b].float() - ref[b]).abs().max())
+                       for b in range(4)) for lg in (lg_on, lg_off))
+    if not d_on <= 1.5 * d_off:
+        fail(f"bf16 prefill: K5 on is {d_on} from the float32 prefill, more "
+             f"than 1.5x K5 off's {d_off}")
+    print(f"serving bf16 B=4 S=1024 prefill vs a float32 K5-off prefill of "
+          f"the same tokens: max abs logit distance K5 on {d_on}, K5 off "
+          f"{d_off} (limit: on <= 1.5x off)", flush=True)
+    del lg_on, lg_off, ref
     busy, rows = device_busy(torch, lambda: on.prefill(params, batch))
     flash_prefills += 1
     print(f"device profile of one bf16 prefill: busy {busy:.6f} s of "

@@ -6,7 +6,8 @@ The port of ``repro/kernels/flash_attention.py`` (TPU kernel
 carry fewer heads ``K`` (``K`` divides ``H``, query head ``h`` reads kv
 head ``h // (H // K)``), so grouped-query attention needs no repeated copy.
 ``csrc/flash_attention.cu`` runs one CUDA block per (batch * head, query
-tile) and loops over kv tiles (see the note there).
+tile) and loops over kv tiles (see the note there): bfloat16 on the tensor
+cores, float32 on the CUDA cores.
 
 :func:`flash_attention` takes torch tensors: a CUDA tensor launches the
 kernel (counted as ``"flash_attention"``), a CPU tensor runs
@@ -24,7 +25,7 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, _build
 
-__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS", "tiles"]
 
 #: Head dims the kernel is built for.
 HEAD_DIMS = (32, 64, 128, 256)
@@ -33,7 +34,25 @@ _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
 _SIGNATURES = {
     "flash_attention_fwd": [_P] * 4 + [_L] * 12 + [_I] * 9 + [_D, _D, _I, _P],
+    "flash_attention_tiles": [_I, _I, _P, _P],
 }
+
+
+def tiles(hd: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(query rows per block, kv rows per tile) of the kernel that runs
+    head dim ``hd`` in ``dtype``, as built (on the machine with the card)."""
+    bq, bk = ctypes.c_int(), ctypes.c_int()
+    lib = _build.load("flash_attention", _SIGNATURES)
+    if lib.flash_attention_tiles(hd, int(dtype == torch.bfloat16),
+                                 ctypes.byref(bq), ctypes.byref(bk)):
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    return bq.value, bk.value
+
+
+def _rows_aligned(t) -> bool:
+    """Every [.., .., s, :] row of t starts on 16 bytes (the bf16 kernel's
+    cp.async copies): a 16-byte-aligned base and strides of 8 elements."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
 
 
 def _check(q, k, v) -> None:
@@ -101,7 +120,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     axes), ``window > 0`` (causal only) also masks ``q_idx - k_idx >=
     window``, ``softcap`` applies ``softcap * tanh(s / softcap)`` to the
     scaled scores, and ``kv_len`` (0 = all) is the number of real kv
-    positions.  float32 or bfloat16 in, the same out, fp32 inside."""
+    positions.  float32 or bfloat16 in, the same out, fp32 scores and
+    softmax inside.  The bfloat16 kernel copies its tiles with 16-byte
+    asynchronous copies, so it needs every row of q, k and v to start on
+    16 bytes; an operand whose rows do not goes in as a contiguous copy."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -109,6 +131,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     B, H, Sq, hd = q.shape
     K, Skv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)          # same strides as q (dense layouts)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (t if _rows_aligned(t)
+                   else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
     if B * H and Sq:
         strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
         _build.launch("flash_attention", _SIGNATURES, "flash_attention_fwd",

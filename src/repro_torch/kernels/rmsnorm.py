@@ -3,10 +3,10 @@
 The port of ``repro/kernels/rmsnorm.py`` (TPU kernel ``_rmsnorm_kernel``)
 and of its oracle ``repro/kernels/ref.py`` ``rmsnorm``: per row of
 x [rows, d], ``x * rsqrt(mean(x^2) + eps) * scale`` in fp32, returned in
-x's dtype.  ``csrc/rmsnorm.cu`` runs one CUDA block per row (see the note
-there).  The reference tiles rows by ``block_rows`` and needs it to divide
-``rows``; that is a tiling detail of the TPU, so any ``rows`` and ``d``
-work here.
+x's dtype.  ``csrc/rmsnorm.cu`` reads each row once into the registers of
+one warp, or of a few for a long row (see the note there).  The reference
+tiles rows by ``block_rows`` and needs it to divide ``rows``; that is a
+tiling detail of the TPU, so any ``rows`` and ``d`` work here.
 
 :func:`rmsnorm` takes torch tensors: a CUDA tensor launches the kernel
 (counted as ``"rmsnorm"``), a CPU tensor runs :func:`rmsnorm_plain`.  x
@@ -25,7 +25,7 @@ __all__ = ["rmsnorm", "rmsnorm_plain"]
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
 _SIGNATURES = {"rmsnorm_fwd": [_P] * 3 + [_L] * 2 + [_I] * 2 + [_D]
-               + [_I] * 2 + [_P]}
+               + [_I] * 3 + [_P]}
 
 
 def _check(x, scale) -> None:
@@ -56,8 +56,10 @@ def rmsnorm_plain(x, scale, eps: float = 1e-6):
 
 def rmsnorm(x, scale, eps: float = 1e-6):
     """K7 wrapper: RMSNorm of each row of x [rows, d] (float32 or
-    bfloat16) with scale [d] (any float dtype, cast to float32 once).
-    Returns a contiguous [rows, d] of x's dtype; fp32 inside."""
+    bfloat16) with scale [d] (any float dtype: float32 and bfloat16 go to
+    the kernel as they are and are widened there, others are cast to
+    float32 first).  Returns a contiguous [rows, d] of x's dtype; fp32
+    inside."""
     _check(x, scale)
     if x.device.type == "cpu":
         return rmsnorm_plain(x, scale, eps)
@@ -66,14 +68,17 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     if rows and d:
         if rows >= 2**31:
             raise ValueError(f"rows {rows} exceed the kernel's grid")
-        s32 = scale.to(torch.float32).contiguous()
+        if scale.dtype not in (torch.float32, torch.bfloat16):
+            scale = scale.to(torch.float32)
+        scale = scale.contiguous()
         # 16-byte loads and stores where every row starts on 16 bytes.
         per16 = 16 // x.element_size()
         vec = d % per16 == 0 and x.stride(0) % per16 == 0 \
-            and x.data_ptr() % 16 == 0
+            and x.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0
         _build.launch("rmsnorm", _SIGNATURES, "rmsnorm_fwd", x.device,
-                      x.data_ptr(), s32.data_ptr(), y.data_ptr(), x.stride(0),
-                      y.stride(0), rows, d, float(eps),
-                      int(x.dtype == torch.bfloat16), int(vec))
+                      x.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                      x.stride(0), y.stride(0), rows, d, float(eps),
+                      int(x.dtype == torch.bfloat16),
+                      int(scale.dtype == torch.bfloat16), int(vec))
         LAUNCHES["rmsnorm"] += 1
     return y

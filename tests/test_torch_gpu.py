@@ -185,21 +185,56 @@ def test_flash_kernel_close_to_plain(cuda, B, H, K, S, hd, dtype):
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [
     dict(window=32), dict(window=300), dict(softcap=50.0, scale=3.0),
     dict(causal=False, Sq=128, Skv=256), dict(kv_len=150, Skv=192),
     dict(causal=False, kv_len=70, Sq=64, Skv=100), dict(hd=256, Sq=96),
+    dict(hd=32),
 ])
-def test_flash_kernel_options(cuda, case):
+def test_flash_kernel_options(cuda, case, dtype):
     case = dict(case)
     causal = case.pop("causal", True)
     hd, Sq = case.pop("hd", 64), case.pop("Sq", 256)
     Skv = case.pop("Skv", Sq)
-    q, k, v = _qkv(cuda, torch.float32, 2, 4, 2, Sq, Skv, hd, seed=7,
+    q, k, v = _qkv(cuda, dtype, 2, 4, 2, Sq, Skv, hd, seed=7,
                    scale=case.pop("scale", 1.0))
     got = fa.flash_attention(q, k, v, causal=causal, **case)
     want = fa.flash_attention_plain(q, k, v, causal=causal, **case)
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+def test_flash_bf16_fully_masked_rows_give_zero(cuda):
+    """window 16 over kv_len 150 of 192: rows 165 and beyond see no kv
+    position, and the kernel writes 0 there, as the plain version does."""
+    q, k, v = _qkv(cuda, torch.bfloat16, 1, 4, 4, 192, 192, 64, seed=8)
+    got = fa.flash_attention(q, k, v, window=16, kv_len=150)
+    want = fa.flash_attention_plain(q, k, v, window=16, kv_len=150)
+    assert bool((got[:, :, 165:] == 0).all())
+    assert bool(got[:, :, :165].abs().amax(dim=-1).gt(0).all())
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(torch.bfloat16))
+
+
+def test_flash_bf16_reads_misaligned_views(cuda):
+    """A bf16 q whose base sits one element past 16 bytes (rows 65
+    elements apart) goes to the kernel as a contiguous copy: the result
+    equals that of the copy bit for bit and the plain version's within
+    2e-2."""
+    q, k, v = _qkv(cuda, torch.bfloat16, 2, 4, 2, 200, 200, 64, seed=10)
+    wide = torch.zeros(2, 4, 200, 65, dtype=torch.bfloat16, device=cuda)
+    wide[..., 1:] = q
+    view = wide[..., 1:]
+    assert view.data_ptr() % 16 != 0
+    before = LAUNCHES["flash_attention"]
+    got = fa.flash_attention(view, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    assert torch.equal(got, fa.flash_attention(q, k, v))
+    torch.testing.assert_close(got.float(),
+                               fa.flash_attention_plain(q, k, v).float(),
+                               **_tol(torch.bfloat16))
 
 
 def test_flash_model_layout_reads_strided_views(cuda):
@@ -346,6 +381,7 @@ def _randn(dev, rng, shape, dtype, scale=1.0, shift=0.0):
 @pytest.mark.parametrize("rows,d", [
     (8, 128), (256, 512), (1024, 4096), (64, 3584),   # reference shapes
     (100, 3000), (37, 1001), (4, 2048),               # ragged, decode
+    (16, 16384), (4, 40000), (3, 9001),               # several warps a row
 ])
 def test_rmsnorm_kernel_close_to_plain(cuda, rows, d, dtype):
     rng = np.random.default_rng(rows + d)
@@ -358,6 +394,27 @@ def test_rmsnorm_kernel_close_to_plain(cuda, rows, d, dtype):
     assert LAUNCHES["rmsnorm"] == before + 1
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+def test_rmsnorm_bf16_scale_is_one_launch(cuda):
+    """A bf16 scale goes to the kernel as it is: one kernel on the card
+    (the K7 kernel, no cast before it) and one counted launch."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(14)
+    x = _randn(cuda, rng, (64, 2048), torch.bfloat16)
+    s = _randn(cuda, rng, (2048,), torch.bfloat16, shift=1.0)
+    torch.cuda.synchronize()
+    before = LAUNCHES["rmsnorm"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = rn.rmsnorm(x, s)
+        torch.cuda.synchronize()
+    assert LAUNCHES["rmsnorm"] == before + 1
+    kernels = [e for e in prof.key_averages()
+               if e.self_device_time_total > 0]
+    assert [e.count for e in kernels] == [1], [e.key for e in kernels]
+    assert "rmsnorm" in kernels[0].key
+    torch.testing.assert_close(got.float(), rn.rmsnorm_plain(x, s).float(),
+                               **_tol(torch.bfloat16))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

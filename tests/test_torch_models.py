@@ -15,7 +15,9 @@ function, and numpy-seeded tokens go through both:
     ``tests/test_arch_smoke.py``), with the bf16/f32 cache and the int8
     cache;
   * the greedy tokens of ``repro_torch.launch.serve``'s loop against the
-    reference serve loop's, equal.
+    reference serve loop's, equal;
+  * in bf16 compute, ``prefill`` (K5 off and on) no farther from the
+    reference's bf16 prefill than that is from its float32 prefill.
 """
 import dataclasses
 
@@ -124,6 +126,27 @@ def test_prefill_other_dense_archs(built, count_flash, arch):
     got = port.prefill(params, pb)
     assert count_flash == transformer.layer_windows(port.config)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma2-9b"])
+def test_bf16_prefill_within_the_reference_bf16_distance(built, count_flash,
+                                                         arch, flash):
+    """bf16 compute, the full configs' default: the port's bf16 prefill is
+    no farther from the reference's bf16 prefill than that is from the
+    reference's own float32 prefill of the same params and tokens (the
+    rounding of bf16 itself).  gemma2 brings the softcap and the sliding
+    windows; K5 on is its plain version here."""
+    ref16, rparams, port, params = built(arch, compute_dtype="bfloat16",
+                                         use_flash_kernel=flash)
+    ref32 = built(arch)[0]
+    rb, pb = _batch(port.config, 2, 130)
+    want = np.asarray(jax.jit(ref16.prefill)(rparams, rb), np.float32)
+    f32 = np.asarray(jax.jit(ref32.prefill)(rparams, rb), np.float32)
+    got = port.prefill(params, pb).float().numpy()
+    assert len(count_flash) == (port.config.n_layers if flash else 0)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= np.abs(want - f32).max()
 
 
 def test_loss_matches_reference(built):
