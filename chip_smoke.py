@@ -14,7 +14,8 @@ Phases (any failure exits non-zero before the result line):
      shapes (S = 20 servers, N ~ 300 GPUs of ``philly_cluster(20,
      seed=1)``, B = C = 64 rows, J = 161 stack rows) and require
      ``torch.equal`` with its plain PyTorch version on the same inputs;
-     time both with CUDA events.  The attention kernel K5 is held
+     time both with CUDA events; K1 and K2 also at the |J| = 1024 scale
+     point's stack (C = 64, J = 1025, S = 32).  The attention kernel K5 is held
      against its plain version within 2e-2 (bf16) and 2e-5 (float32) at
      the llama3.2-1b serving shape (B = 4, H = 32, K = 8, S = 1024,
      hd = 64, in the model layout the prefill hands it) and on small
@@ -64,15 +65,21 @@ Phases (any failure exits non-zero before the result line):
   7. RMSNorm and SwiGLU kernels -- K7 and K8 against their plain versions
      in float32 (2e-5) and bf16 (2e-2) at the reference tests' shapes
      (K7 rows x d (8, 128), (256, 512), (1024, 4096), (64, 3584); K8
-     M x K x N (128, 512, 128), (256, 1024, 512), (128, 256, 384)), ragged
+     M x K x N (128, 512, 128), (256, 1024, 512), (128, 256, 384)), one
+     ``wgmma`` tile of K8 (64, 16, 64) and (64, 64, 64), ragged
      shapes (K7 (100, 3000), (37, 1001), rows of several warps (16, 16384),
-     (4, 40000), (3, 9001) and a strided view; K8
-     (100, 300, 200) and a column-slice weight), the decode shape (4 rows)
+     (4, 40000), (3, 9001) and a strided view; K8 K not a multiple of 64
+     (128, 300, 256), (128, 2047, 128), ragged tiles (100, 300, 200),
+     (129, 512, 136), a column-slice weight and misaligned views, which
+     the bf16 wrapper copies for TMA), the decode shape (4 rows)
      and K8 with |gate| ~ 100; timed at llama3.2-1b's bf16 prefill shape
      (B = 4 x S = 1024 tokens, d_model 2048, d_ff 8192) beside their plain
      versions, ``F.rms_norm`` for K7 (the yardstick only: the port never
      calls it) and, for K8, which no single PyTorch call computes, the
-     three-call cuBLAS composite ``F.silu(x @ Wg) * (x @ Wu)``;
+     three-call cuBLAS composite ``F.silu(x @ Wg) * (x @ Wu)``; the bf16
+     K8's tensor-core (``HGMMA``) and TMA (``UTMALDG``) instructions in
+     ``cuobjdump -sass`` are printed (no ``HGMMA`` fails); the float32 K8
+     (the CUDA-core kernel) is timed at (1024, 2048, 8192);
   8. entry points -- ``ops.rmsnorm`` and ``ops.swiglu`` (the reference's
      public entry points of K7 and K8; no model of either package calls
      them) on llama3.2-1b's own activations at full width: a float32
@@ -83,7 +90,8 @@ Phases (any failure exits non-zero before the result line):
      version (2e-5 f32, 2e-2 bf16); the distance to the model's in-line
      norm and gate math is printed, not gated.  The model's own results
      flow on, so the logits must be ``torch.equal`` to an unpatched
-     prefill's.
+     prefill's.  One more checked bf16 prefill runs under torch.profiler
+     for its device busy time and K8's part of it.
 
 float32 matrix products run in full float32 throughout
 (``torch.backends.cuda.matmul.allow_tf32 = False``, set in ``main``): the
@@ -154,9 +162,70 @@ def time_ms(torch, fn, reps: int = 200) -> float:
     return start.elapsed_time(end) / reps
 
 
+def columnar_stack(np, cluster, jobs, C, rng, put):
+    """A columnar batched-engine stack: per candidate, the placed jobs in
+    its own row order plus the probed candidate row (J = |jobs| + 1),
+    each on a random GPU set; per-candidate [C, J] terms.  Returns the
+    four card tensors and their bytes."""
+    import torch
+
+    from repro_torch.core.contention import _job_terms
+    S, N = cluster.num_servers, cluster.num_gpus
+    G, share, compute = _job_terms(jobs)
+    J = len(jobs) + 1
+    Y = np.zeros((C, J, S), dtype=np.int64)
+    G2 = np.zeros((C, J), dtype=np.int64)
+    sh2, cp2 = np.zeros((C, J)), np.zeros((C, J))
+    for c in range(C):
+        perm = np.concatenate([rng.permutation(len(jobs)),
+                               [rng.integers(len(jobs))]])
+        for r, j in enumerate(perm):
+            gpus = rng.choice(N, size=G[j], replace=False)
+            Y[c, r] = np.bincount(cluster.gpu_server[gpus], minlength=S)
+        G2[c], sh2[c], cp2[c] = G[perm], share[perm], compute[perm]
+    return ((put(Y, torch.int64), put(G2, torch.int64),
+             put(sh2, torch.float64), put(cp2, torch.float64)),
+            Y.nbytes + G2.nbytes + sh2.nbytes + cp2.nbytes)
+
+
+def tau_scale_point(torch, np, rt, dev) -> None:
+    """K1 and K2 at the |J| = 1024 scale point's stack shape (J = 1025
+    stack rows, S = 32 servers, C = 64 candidates): ``torch.equal`` to
+    their plain versions, timed beside them."""
+    from repro_torch.kernels import tau
+
+    def put(a, dtype):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    hom = rt.philly_cluster(32, seed=1)
+    het = rt.philly_cluster(32, seed=1, **HETERO)
+    jobs = rt.philly_workload(seed=1, mix=mix_for(1024))
+    stack, _ = columnar_stack(np, hom, jobs, 64, np.random.default_rng(2),
+                              put)
+    scal = dict(xi1=hom.xi1, xi2=hom.xi2, alpha=hom.alpha,
+                b_intra=hom.b_intra)
+    het_t = tau.cluster_tensors(het, dev)
+    het_terms = (het_t["speed_floor"], het_t["uplink_sh"],
+                 het_t["uplink_iso"])
+    hom_kw = dict(scal, b_inter=hom.b_inter, gpu_speed=hom.gpu_speed)
+    for name, kern, plain in (
+            ("tau", lambda: tau.tau_stack_hom(*stack, **hom_kw),
+             lambda: tau.tau_stack_hom_plain(*stack, **hom_kw)),
+            ("tau_het", lambda: tau.tau_stack_het(*stack, *het_terms, **scal),
+             lambda: tau.tau_stack_het_plain(*stack, *het_terms, **scal))):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"kernel {name} disagrees with its plain version at the "
+                 "scale-point stack")
+        ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain, reps=50)
+        print(f"kernel {name} at the scale-point stack {tuple(stack[0].shape)}"
+              f": torch.equal to plain, {ms:.6f} ms/launch, plain "
+              f"{plain_ms:.6f} ms", flush=True)
+
+
 def kernel_phase(torch, np, rt, dev) -> list[dict]:
     """Each kernel against its plain version at the §7 shapes."""
-    from repro_torch.core.contention import _job_terms
     from repro_torch.kernels import placement, tau
 
     rng = np.random.default_rng(1)
@@ -169,24 +238,8 @@ def kernel_phase(torch, np, rt, dev) -> list[dict]:
     def put(a, dtype):
         return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
 
-    # A columnar batched-engine stack: per candidate, the 160 placed jobs
-    # in its own row order plus the probed candidate row (J = 161), each
-    # on a random GPU set; per-candidate [C, J] terms.
-    G, share, compute = _job_terms(jobs)
+    stack, stack_in = columnar_stack(np, hom, jobs, C, rng, put)
     J = len(jobs) + 1
-    Y = np.zeros((C, J, S), dtype=np.int64)
-    G2 = np.zeros((C, J), dtype=np.int64)
-    sh2, cp2 = np.zeros((C, J)), np.zeros((C, J))
-    for c in range(C):
-        perm = np.concatenate([rng.permutation(len(jobs)),
-                               [rng.integers(len(jobs))]])
-        for r, j in enumerate(perm):
-            gpus = rng.choice(N, size=G[j], replace=False)
-            Y[c, r] = np.bincount(hom.gpu_server[gpus], minlength=S)
-        G2[c], sh2[c], cp2[c] = G[perm], share[perm], compute[perm]
-    stack = (put(Y, torch.int64), put(G2, torch.int64),
-             put(sh2, torch.float64), put(cp2, torch.float64))
-    stack_in = Y.nbytes + G2.nbytes + sh2.nbytes + cp2.nbytes
     stack_out = C * J * 3 * 8
     tau_ops = C * J * S * 6 + C * J * 14
     scal = dict(xi1=hom.xi1, xi2=hom.xi2, alpha=hom.alpha,
@@ -474,7 +527,9 @@ def flash_phase(torch, np, dev) -> dict:
         print(f"kernel flash_attention hd {d}: (BQ, BK) = "
               f"{fa.tiles(d, torch.bfloat16)} bf16 (tensor cores), "
               f"{fa.tiles(d, torch.float32)} float32 (CUDA cores)")
-    sass_counts()
+    sass_counts("flash_attention", "flash_tc_kernel",
+                {"HMMA": ("HMMA",), "LDGSTS/UTMALDG": ("LDGSTS", "UTMALDG")},
+                "K5")
 
     q, k, v = bf16
     lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
@@ -514,29 +569,32 @@ def flash_phase(torch, np, dev) -> dict:
         "entry": "flash_attention", "equal": False}
 
 
-def sass_counts() -> None:
-    """Count, per K5 kernel in ``cuobjdump -sass`` of the built library,
-    the tensor-core (``HMMA``) and asynchronous-copy (``LDGSTS``, or TMA
-    ``UTMALDG``) instructions; fail if a bf16 kernel has no ``HMMA``."""
+def sass_counts(lib: str, kernel: str, ops: dict, label: str) -> None:
+    """Count, per kernel in ``cuobjdump -sass`` of the built library of
+    ``csrc/<lib>.cu``, the instructions of each entry of ``ops`` (name ->
+    the SASS words it counts; the first entry the tensor-core one); fail
+    if a kernel whose name holds ``kernel`` has none of the first."""
     from repro_torch.kernels import _build
 
     tool = Path(_build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run(
-        [str(tool), "-sass", str(_build.library_path("flash_attention"))],
+        [str(tool), "-sass", str(_build.library_path(lib))],
         capture_output=True, text=True, check=True).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ", 1)[1].strip()
-            counts[fn] = [0, 0]
+            counts[fn] = dict.fromkeys(ops, 0)
         elif fn is not None:
-            counts[fn][0] += "HMMA" in line
-            counts[fn][1] += "LDGSTS" in line or "UTMALDG" in line
-    tc = {fn: c for fn, c in counts.items() if "flash_tc_kernel" in fn}
-    for fn, (hmma, ldgsts) in counts.items():
-        print(f"sass {fn}: HMMA {hmma}, LDGSTS/UTMALDG {ldgsts}")
-    if not tc or not all(hmma > 0 for hmma, _ in tc.values()):
-        fail(f"K5: the bf16 kernels lack tensor-core instructions: {tc}")
+            for op, words in ops.items():
+                counts[fn][op] += any(w in line for w in words)
+    for fn, c in counts.items():
+        print(f"sass {fn}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
+    tensor_op = next(iter(ops))
+    tc = {fn: c for fn, c in counts.items() if kernel in fn}
+    if not tc or not all(c[tensor_op] > 0 for c in tc.values()):
+        fail(f"{label}: the bf16 kernels lack tensor-core instructions "
+             f"({tensor_op}): {tc}")
 
 
 def mlstm_phase(torch, np, dev) -> dict:
@@ -659,8 +717,13 @@ def rmsnorm_swiglu_phase(torch, np, dev) -> list[dict]:
         norm_case(f"(64, 512) view of row stride 520 {name}", wide[:, 4:516],
                   randn(np.random.default_rng(8), (512,), dtype, shift=1.0),
                   tol)
-        for M, K, N in ((128, 512, 128), (256, 1024, 512), (128, 256, 384),
-                        (100, 300, 200), (4, 2048, 8192)):
+        # (M, K, N): one wgmma tile first (64, 16, 64), (64, 64, 64), then
+        # the reference tests' shapes, K not a multiple of 64, ragged M and
+        # N tiles and the decode shape.
+        for M, K, N in ((64, 16, 64), (64, 64, 64), (128, 512, 128),
+                        (256, 1024, 512), (128, 256, 384), (128, 300, 256),
+                        (128, 2047, 128), (100, 300, 200), (129, 512, 136),
+                        (4, 2048, 8192)):
             rng = np.random.default_rng(M + K + N)
             gate_case(f"({M}, {K}, {N}) {name}",
                       randn(rng, (M, K), dtype, 0.1),
@@ -672,6 +735,11 @@ def rmsnorm_swiglu_phase(torch, np, dev) -> list[dict]:
             randn(rng, (256, 200), dtype, 0.05)
         gate_case(f"(96, 256, 136) column-slice weights {name}", x,
                   wg[:, 32:168], wu[:, 64:], tol)
+        # x one element off its allocation and slices at odd offsets: the
+        # bf16 wrapper hands TMA aligned copies.
+        gate_case(f"(96, 256, 136) misaligned views {name}",
+                  randn(rng, (96, 257), dtype, 0.1)[:, 1:], wg[:, 3:139],
+                  wu[:, 61:197], tol)
         # |gate| up to ~180 from small integers (and u in 1/64ths): every
         # sum is exact in fp32 in any order, so the case measures silu at
         # extreme g and not sum order amplified by |g|.
@@ -711,6 +779,13 @@ def rmsnorm_swiglu_phase(torch, np, dev) -> list[dict]:
     ms8 = time_ms(torch, lambda: sg.swiglu(xm, wg, wu), reps=10)
     plain8 = time_ms(torch, lambda: sg.swiglu_plain(xm, wg, wu), reps=10)
     composite = time_ms(torch, lambda: F.silu(xm @ wg) * (xm @ wu), reps=50)
+    sass_counts("swiglu", "swiglu_tc_kernel",
+                {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)}, "K8")
+    x32, wg32, wu32 = xm[:1024].float(), wg.float(), wu.float()
+    f32_ms = time_ms(torch, lambda: sg.swiglu(x32, wg32, wu32), reps=10)
+    print(f"kernel swiglu float32 ({len(x32)}, {d}, {ff}): {f32_ms:.6f} "
+          f"ms/launch (the CUDA-core kernel)", flush=True)
+    del x32, wg32, wu32
     # x, w_gate, w_up read and out written once (bf16); two products.
     bytes8 = 2 * (rows * d + 2 * d * ff + rows * ff)
     ops8 = 4 * rows * d * ff
@@ -1173,6 +1248,18 @@ def entry_point_phase(torch, np, kernels, totals: dict, dev) -> None:
                  "from an unpatched prefill's")
         if not bool(torch.isfinite(got).all()):
             fail(f"entry points {dtype}: non-finite logits")
+        profiled = ""
+        if dtype == "bfloat16":
+            transformer.rms_norm, transformer.mlp = checked_norm, checked_mlp
+            try:
+                busy, items = device_busy(
+                    torch, lambda: model.prefill(params, batch))
+            finally:
+                transformer.rms_norm, transformer.mlp = norm, mlp
+            k8_s = sum(us for us, _, key in items
+                       if "swiglu_tc_kernel" in key) / 1e6
+            profiled = (f"; one more checked prefill under torch.profiler: "
+                        f"device busy {busy:.6f} s, of it K8 {k8_s:.6f} s")
         print(f"entry points llama3.2-1b {dtype} B={B} S={S} prefill, "
               f"{n7} ops.rmsnorm and {n8} ops.swiglu calls on its own "
               f"activations: max abs err vs plain "
@@ -1181,7 +1268,7 @@ def entry_point_phase(torch, np, kernels, totals: dict, dev) -> None:
               f"{worst['ops.rmsnorm vs model rms_norm']}, vs its in-line "
               f"gate math {worst['ops.swiglu vs model gate']}; logits "
               f"torch.equal to an unpatched prefill; checked prefill "
-              f"{t:.6f} s", flush=True)
+              f"{t:.6f} s{profiled}", flush=True)
         del want, got, model
     del params
     torch.cuda.empty_cache()
@@ -1233,6 +1320,7 @@ def main() -> None:
 
     dev = repro_torch.resolve_device("cuda")
     rows = kernel_phase(torch, np, rt, dev)
+    tau_scale_point(torch, np, rt, dev)
     rows.append(flash_phase(torch, np, dev))
     rows.append(mlstm_phase(torch, np, dev))
     rows.extend(rmsnorm_swiglu_phase(torch, np, dev))

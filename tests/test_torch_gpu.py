@@ -100,6 +100,45 @@ def test_tau_kernel_equals_plain(cuda, hetero, terms_2d):
         assert torch.equal(w, g)
 
 
+def _random_stack(rng, dev, C, J, S, terms_2d):
+    """A random [C, J, S] stack with occupied, straddled and whole
+    entries, [J] or [C, J] terms and per-server K2 terms (+inf where a
+    class is absent)."""
+    Y = rng.integers(1, 5, (C, J, S)) * (rng.random((C, J, S)) < 0.15)
+    shape = (C, J) if terms_2d else (J,)
+    G = rng.integers(1, 6, shape)
+    share, compute = rng.uniform(0.1, 10.0, shape), rng.uniform(1, 5, shape)
+    server = [rng.uniform(0.5, 50.0, S) for _ in range(3)]
+    for t in server[1:]:
+        t[rng.random(S) < 0.3] = np.inf
+    return ((_on(dev, Y, torch.int64), _on(dev, G, torch.int64),
+             _on(dev, share, torch.float64), _on(dev, compute, torch.float64)),
+            tuple(_on(dev, t, torch.float64) for t in server))
+
+
+@pytest.mark.parametrize("hetero", [False, True])
+@pytest.mark.parametrize("terms_2d", [False, True])
+@pytest.mark.parametrize("C,J,S", [
+    (16, 1025, 32),     # the |J| = 1024 scale point's stack rows and servers
+    (8, 2500, 20),      # beyond the 48 KB of shared memory: taken in chunks
+    (4, 3, 300),        # more servers than threads: the staging loops wrap
+])
+def test_tau_kernel_equals_plain_at_scale(cuda, hetero, terms_2d, C, J, S):
+    args, server = _random_stack(np.random.default_rng(C + J + S), cuda, C, J,
+                                 S, terms_2d)
+    kw = dict(xi1=0.3, xi2=0.01, alpha=0.7, b_intra=50.0)
+    if hetero:
+        got = tau.tau_stack_het(*args, *server, **kw)
+        want = tau.tau_stack_het_plain(*args, *server, **kw)
+    else:
+        kw.update(b_inter=1.25, gpu_speed=25.0)
+        got = tau.tau_stack_hom(*args, **kw)
+        want = tau.tau_stack_hom_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+
+
 @pytest.mark.parametrize("G", [1, 4, 16, 64])
 def test_pool_kernel_equals_plain(cuda, G):
     cluster = _cluster(5, hetero=False)
@@ -433,6 +472,54 @@ def test_swiglu_kernel_close_to_plain(cuda, M, K, N, dtype):
     assert LAUNCHES["swiglu"] == before + 1
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (64, 16, 64), (64, 64, 64),                   # one wgmma tile
+    (128, 300, 256), (128, 2047, 128),            # K not a multiple of 64
+    (100, 256, 200), (129, 512, 136),             # ragged M and N tiles
+    (4096, 2048, 8192),                           # llama3.2-1b's prefill
+])
+def test_swiglu_bf16_tensor_core_shapes(cuda, M, K, N):
+    rng = np.random.default_rng(M + K + N)
+    x = _randn(cuda, rng, (M, K), torch.bfloat16, 0.1)
+    wg, wu = (_randn(cuda, rng, (K, N), torch.bfloat16, K ** -0.5)
+              for _ in range(2))
+    before = LAUNCHES["swiglu"]
+    got = sg.swiglu(x, wg, wu)
+    want = sg.swiglu_plain(x, wg, wu)
+    torch.cuda.synchronize()
+    assert LAUNCHES["swiglu"] == before + 1
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(torch.bfloat16))
+
+
+def test_swiglu_bf16_misaligned_views_go_through_an_aligned_copy(
+        cuda, monkeypatch):
+    """TMA needs 16-byte-aligned rows: x one element off its allocation and
+    weight slices at odd offsets are copied, aligned views read in place."""
+    copied = []
+    tma_operand = sg._tma_operand
+
+    def spy(t):
+        out = tma_operand(t)
+        copied.append(out.data_ptr() != t.data_ptr())
+        return out
+
+    monkeypatch.setattr(sg, "_tma_operand", spy)
+    rng = np.random.default_rng(17)
+    x = _randn(cuda, rng, (96, 257), torch.bfloat16, 0.1)[:, 1:]
+    w = _randn(cuda, rng, (256, 400), torch.bfloat16, 0.05)
+    for wg, wu, want_copy in ((w[:, 3:139], w[:, 150:286], [True] * 3),
+                              (w[:, 8:136], w[:, 264:392], [True, False,
+                                                            False])):
+        copied.clear()
+        got = sg.swiglu(x, wg, wu)
+        torch.cuda.synchronize()
+        assert copied == want_copy
+        torch.testing.assert_close(
+            got.float(), sg.swiglu_plain(x, wg, wu).float(),
+            **_tol(torch.bfloat16))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

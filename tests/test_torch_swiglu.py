@@ -143,6 +143,32 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, err, exc):
         sg.swiglu(x, wg, wu)
 
 
+@pytest.mark.parametrize("case, copied", [
+    ("contiguous, width a multiple of 8", False),
+    ("contiguous, odd width", True),
+    ("one element off its allocation", True),
+    ("column slice at a 16-byte offset", False),
+    ("column slice at an odd offset", True),
+])
+def test_tma_operand_copies_only_what_tma_cannot_read(case, copied):
+    """The bf16 kernel's TMA maps need a 16-byte-aligned base and rows a
+    multiple of 8 elements apart: the wrapper hands such an operand over
+    as it is and any other as a copy in a padded, aligned buffer, values
+    unchanged."""
+    base = torch.arange(64 * 200, dtype=torch.float32).reshape(64, 200) \
+        .to(torch.bfloat16)
+    t = {"contiguous, width a multiple of 8": base,
+         "contiguous, odd width": base[:, :7].contiguous(),
+         "one element off its allocation": base[:, 1:],
+         "column slice at a 16-byte offset": base[:, 8:72],
+         "column slice at an odd offset": base[:, 3:67]}[case]
+    out = sg._tma_operand(t)
+    assert torch.equal(out, t)
+    assert (out.data_ptr() != t.data_ptr()) == copied
+    assert out.data_ptr() % 16 == 0 and out.stride(0) % 8 == 0
+    assert out.stride(0) >= out.shape[1] and out.stride(1) == 1
+
+
 @pytest.fixture(scope="module")
 def llama_mlp():
     """The reduced llama3.2-1b's MLP weights, from the reference's init
