@@ -5,7 +5,8 @@ Run from the root of a checkout on a machine with a CUDA card::
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero before the result line):
+Phases (any failure exits non-zero before the result line), after the
+per-launch floor (one in-place add on a one-element tensor):
 
   1. build -- compile ``src/repro_torch/kernels/csrc/*.cu`` with nvcc for
      sm_90a (one nvcc per source, in parallel) and print ptxas's
@@ -46,9 +47,16 @@ Phases (any failure exits non-zero before the result line):
   5. mLSTM kernel -- K6 against its plain version at xlstm-350m's prefill
      shape (B = 4, H = 4, S = 1024, hd = 512, in the model layout the
      prefill hands it) within 2e-4 in float32 and 3e-2 with bf16 inputs,
-     and on small cases (hd 64/128/256, ragged S, S below one tile,
-     BH = 1); timed beside its plain version (no PyTorch call computes
-     this function);
+     and on small cases (every head dim, ragged S, S at the edges of its
+     tiles from 1 to 1000, BH = 1 and 16, a view one element off its
+     allocation); on two near-cancelling cases (|sum S| far below its
+     terms) the kernel within 2e-4 of the float64 plain version, its
+     distance and the float32 plain version's printed; the fp32 FMA
+     (``FFMA``), asynchronous-copy (``LDGSTS``) and tensor-core (``HMMA``)
+     instructions of its kernels in ``cuobjdump -sass`` printed (no
+     ``FFMA`` fails); timed beside its plain version (no PyTorch call
+     computes this function), its bound that of fp32 on the CUDA cores,
+     with that of 3xTF32 on the tensor cores beside it;
   6. xlstm -- xlstm-350m at full width (24 layers, d_model 1024, vocab
      50304), random weights from a seeded ``torch.Generator``, K6 on:
      a float32 prefill (B = 2, S = 1024) in which every mLSTM block's K6
@@ -61,7 +69,8 @@ Phases (any failure exits non-zero before the result line):
      S = 1024) timed with K6 on and off, their logits compared, the
      mLSTM / sLSTM split of its wall time and the device's busy share;
      then the serve CLI at its defaults.  K6 must launch exactly once per
-     mLSTM block (18) of every K6 prefill;
+     mLSTM block (18) of every K6 prefill; the profiled prefill prints
+     K6's device time;
   7. RMSNorm and SwiGLU kernels -- K7 and K8 against their plain versions
      in float32 (2e-5) and bf16 (2e-2) at the reference tests' shapes
      (K7 rows x d (8, 128), (256, 512), (1024, 4096), (64, 3584); K8
@@ -112,6 +121,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP64_OPS_PER_S = 34e12         # H100 SXM FP64 outside the tensor cores
 FP32_OPS_PER_S = 67e12         # H100 SXM FP32 outside the tensor cores
+TF32_TC_OPS_PER_S = 495e12     # H100 SXM dense TF32 tensor-core rate
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 # K5 at the llama3.2-1b serving shape: batch, q heads, kv heads, seq, hd.
 SERVE_ATTN = (4, 32, 8, 1024, 64)
@@ -572,8 +582,9 @@ def flash_phase(torch, np, dev) -> dict:
 def sass_counts(lib: str, kernel: str, ops: dict, label: str) -> None:
     """Count, per kernel in ``cuobjdump -sass`` of the built library of
     ``csrc/<lib>.cu``, the instructions of each entry of ``ops`` (name ->
-    the SASS words it counts; the first entry the tensor-core one); fail
-    if a kernel whose name holds ``kernel`` has none of the first."""
+    the SASS words it counts; the first entry the one its products run
+    on); fail if a kernel whose name holds ``kernel`` has none of the
+    first."""
     from repro_torch.kernels import _build
 
     tool = Path(_build.nvcc()).with_name("cuobjdump")
@@ -593,14 +604,39 @@ def sass_counts(lib: str, kernel: str, ops: dict, label: str) -> None:
     tensor_op = next(iter(ops))
     tc = {fn: c for fn, c in counts.items() if kernel in fn}
     if not tc or not all(c[tensor_op] > 0 for c in tc.values()):
-        fail(f"{label}: the bf16 kernels lack tensor-core instructions "
-             f"({tensor_op}): {tc}")
+        fail(f"{label}: the kernels lack the instructions their products "
+             f"run on ({tensor_op}): {tc}")
+
+
+def cancelling_inputs(torch, np, dev, BH, S, hd, seed):
+    """K6 inputs whose denominators nearly cancel: q.k of alternating sign
+    (consecutive kv rows carry opposite keys of one random length along one
+    direction every query shares), slow forget gates and input gates near
+    3, so each row's sum of S[t, s] is a small alternating sum of its
+    terms, above exp(-m) in most rows; float32, as the model hands K6 its
+    operands."""
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal(hd)
+    u /= np.linalg.norm(u)
+    q = rng.standard_normal((BH, S, hd)) * 0.1 / np.sqrt(hd) + u
+    length = np.repeat(rng.standard_normal((BH, S // 2, 1)) * 0.5 + 1.0, 2,
+                       axis=1)
+    sign = np.where(np.arange(S) % 2 == 0, 1.0, -1.0)[None, :, None]
+    k = length * sign * u + rng.standard_normal((BH, S, hd)) * 0.1 / np.sqrt(
+        hd)
+    v = rng.standard_normal((BH, S, hd)) / np.sqrt(hd)
+    F = np.cumsum(-np.logaddexp(0.0, -(3.0 + rng.standard_normal((BH, S)))),
+                  axis=1)
+    i = 3.0 + 0.1 * rng.standard_normal((BH, S))
+    return [torch.tensor(a, dtype=torch.float32, device=dev)
+            for a in (q, k, v, F, i)]
 
 
 def mlstm_phase(torch, np, dev) -> dict:
     """K6 against its plain version on the card, at the xlstm-350m prefill
-    shape in float32 and with bf16 inputs and on small cases; times at the
-    prefill shape."""
+    shape in float32 and with bf16 inputs, on small cases at the edges of
+    its tiles and on near-cancelling denominators against a float64 plain
+    version; times at the prefill shape."""
     from repro_torch.kernels import mlstm as ml
     from repro_torch.kernels import ops
 
@@ -639,28 +675,80 @@ def mlstm_phase(torch, np, dev) -> dict:
     err = check(f"prefill shape {XLSTM_MLSTM} float32", f32, 2e-4)
     check(f"prefill shape {XLSTM_MLSTM} bf16",
           model_layout(B, H, S, hd, torch.bfloat16, seed=1), 3e-2)
-    for label, (b, h, s, d) in [
-            ("hd 64", (2, 4, 256, 64)), ("hd 128", (1, 4, 320, 128)),
-            ("hd 256", (2, 2, 256, 256)), ("ragged S 300", (2, 4, 300, 512)),
-            ("S 20 below one tile", (2, 4, 20, 512)),
-            ("BH 1", (1, 1, 1024, 512))]:
+    cases = [("hd 64", (2, 4, 256, 64)), ("hd 128", (1, 4, 320, 128)),
+             ("hd 256", (2, 2, 256, 256)), ("ragged S 300", (2, 4, 300, 512)),
+             ("S 20 below one tile", (2, 4, 20, 512)),
+             ("BH 1", (1, 1, 1024, 512)), ("BH 16 S 320", (4, 4, 320, 512))]
+    # S at the edges of the 64-row query tiles, 16-row warp groups, 32-row
+    # kv tiles and 8-row v stages; then every head dim at a ragged S.
+    cases += [(f"S {n} hd 512", (1, 2, n, 512))
+              for n in (1, 15, 16, 17, 63, 64, 65, 1000)]
+    cases += [(f"hd {d} S 300", (2, 2, 300, d)) for d in ml.HEAD_DIMS]
+    for label, (b, h, s, d) in cases:
         check(label, model_layout(b, h, s, d, torch.float32, seed=s + d),
               2e-4)
     check("ragged S 300 bf16",
           model_layout(2, 4, 300, 512, torch.bfloat16, seed=3), 3e-2)
+    # Rows one element off their allocation go in as aligned copies.
+    q, k, v, F, i = model_layout(2, 2, 150, 512, torch.float32, seed=4)
+    wide = torch.zeros(2, 150, 2, 513, device=dev)
+    wide[..., 1:] = q
+    check("q one element off its allocation", (wide[..., 1:], k, v, F, i),
+          2e-4)
+
+    for seed, (BH, n, d) in enumerate(((2, 1024, 512), (16, 1024, 512))):
+        args = cancelling_inputs(torch, np, dev, BH, n, d, seed)
+        exact = ml.mlstm_parallel_plain(*args, dtype=torch.float64)
+        got = ml.mlstm_parallel(*args)
+        plain32 = ml.mlstm_parallel_plain(*args)
+        torch.cuda.synchronize()
+        scores = torch.einsum("...td,...sd->...ts", args[0].double(),
+                              args[1].double())
+        D = args[3].double()[..., :, None] - args[3].double()[..., None, :] \
+            + args[4].double()[..., None, :]
+        D = D.masked_fill(~torch.ones(n, n, dtype=torch.bool, device=dev)
+                          .tril(), float("-inf"))
+        m = D.amax(-1, keepdim=True)
+        scores = scores * torch.exp(D - m)
+        ratio = float((scores.sum(-1).abs() / scores.abs().sum(-1))
+                      .median())
+        live = float((scores.sum(-1, keepdim=True).abs() > torch.exp(-m))
+                     .double().mean())
+        del scores, D
+        d_kernel = float((got.double() - exact).abs().max())
+        d_plain = float((plain32.double() - exact).abs().max())
+        if not torch.isfinite(got).all() or not torch.allclose(
+                got.double(), exact, rtol=2e-4, atol=2e-4):
+            fail(f"K6 near-cancelling ({BH}, {n}, {d}): max abs distance "
+                 f"{d_kernel} to the float64 plain version exceeds 2e-4")
+        print(f"kernel mlstm near-cancelling denominator ({BH}, {n}, {d}) "
+              f"(median |sum S| / sum |S| {ratio}, |sum S| > exp(-m) in "
+              f"{live} of the rows): max abs distance to the float64 plain "
+              f"version: kernel {d_kernel} (within 2e-4), float32 plain "
+              f"{d_plain}", flush=True)
+    # The products run as fp32 FMAs on the CUDA cores (the 3xTF32 tensor-
+    # core design missed the model's per-block gates; PERF.md §6): FFMA is
+    # required, HMMA printed (0).
+    sass_counts("mlstm", "mlstm_kernel",
+                {"FFMA": ("FFMA",), "LDGSTS": ("LDGSTS",),
+                 "HMMA": ("HMMA",)}, "K6")
 
     ms = time_ms(torch, lambda: ops.mlstm(*f32), reps=50)
     plain_ms = time_ms(torch, lambda: plain(*f32), reps=20)
     # q, k, v, F, i read once, y written once (float32).
     n_bytes = 4 * (4 * B * S * H * hd + 2 * B * S * H)
     # q.k and S v, 2 * hd operations each, over the S (S + 1) / 2 causal
-    # pairs, on the CUDA cores in fp32.
+    # pairs, as fp32 FMAs on the CUDA cores (the route the kernel takes);
+    # the bound of the same work as 3xTF32 on the tensor cores, three TF32
+    # products each, is printed beside it.
     n_ops = 2 * hd * B * H * S * (S + 1)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    tf32_ms = 3 * n_ops / TF32_TC_OPS_PER_S * 1e3
     print(f"kernel mlstm float32 {XLSTM_MLSTM}: {ms:.6f} ms/launch, plain "
           f"{plain_ms:.6f} ms, bytes {n_bytes}, ops {n_ops}, bound "
-          f"{max(bytes_ms, ops_ms):.6f} ms", flush=True)
+          f"{max(bytes_ms, ops_ms):.6f} ms (fp32 on the CUDA cores; as "
+          f"3xTF32 on the tensor cores {tf32_ms:.6f} ms)", flush=True)
     return {
         "name": "mlstm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mlstm.cu",
@@ -670,6 +758,17 @@ def mlstm_phase(torch, np, dev) -> dict:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None, "bytes": n_bytes, "entry": "mlstm_parallel",
         "equal": False}
+
+
+def launch_floor(torch, dev) -> float:
+    """The per-launch floor of this card and stack: one in-place add on a
+    one-element tensor, timed with ``time_ms`` as the kernels are."""
+    x = torch.zeros(1, device=dev)
+    ms = time_ms(torch, lambda: x.add_(1.0), reps=1000)
+    print(f"launch floor: one in-place add on a one-element tensor "
+          f"{ms:.6f} ms/launch (time_ms, 1000 back-to-back launches)",
+          flush=True)
+    return ms
 
 
 def rmsnorm_swiglu_phase(torch, np, dev) -> list[dict]:
@@ -1135,8 +1234,11 @@ def xlstm_phase(torch, np, kernels, totals: dict, dev) -> None:
           flush=True)
     busy, rows = device_busy(torch, lambda: on.prefill(params, batch))
     k6_prefills += 1
+    k6 = [(us, count) for us, count, key in rows if "mlstm_kernel" in key]
     print(f"device profile of one xlstm bf16 prefill: busy {busy:.6f} s of "
-          f"{t_on:.6f} s wall, idle share {1.0 - busy / t_on:.6f}")
+          f"{t_on:.6f} s wall, idle share {1.0 - busy / t_on:.6f}; K6 "
+          f"{sum(us for us, _ in k6) / 1e3:.3f} ms in "
+          f"{sum(c for _, c in k6)} launches")
     for us, count, key in rows[:6]:
         print(f"  device {us / 1e3:.3f} ms in {count} x {key[:70]}")
     del params, on, off
@@ -1319,6 +1421,7 @@ def main() -> None:
           flush=True)
 
     dev = repro_torch.resolve_device("cuda")
+    launch_floor(torch, dev)
     rows = kernel_phase(torch, np, rt, dev)
     tau_scale_point(torch, np, rt, dev)
     rows.append(flash_phase(torch, np, dev))

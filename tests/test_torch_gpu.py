@@ -398,8 +398,9 @@ def test_xlstm_prefill_kernel_on_vs_off(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mlstm_kernel_reads_unaligned_views(cuda, dtype):
-    """Rows that do not start on a 4-element boundary take the kernel's
-    element-wise loads; the result is the same."""
+    """Rows that do not start on 16 bytes go to the kernel as float32
+    copies (its cp.async copies need aligned rows); the result is the
+    same."""
     q, k, v, F, i = _mlstm_inputs(cuda, dtype, 2, 150, 64, seed=9)
     wide = [torch.zeros(2, 150, 65, dtype=dtype, device=cuda)
             for _ in range(3)]
@@ -409,6 +410,149 @@ def test_mlstm_kernel_reads_unaligned_views(cuda, dtype):
     got = ml.mlstm_parallel(*views, F, i)
     want = ml.mlstm_parallel(q, k, v, F, i)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _mlstm_close(got, args, tol=2e-4):
+    want = ml.mlstm_parallel_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 63, 64, 65, 1000, 1024])
+def test_mlstm_kernel_tile_edges(cuda, S):
+    """S at the edges of the kernel's tiles (query tiles of 64 rows, warp
+    row groups of 8, kv tiles of 64 and their 8-row v stages) at
+    xlstm-350m's head dim 512."""
+    args = _mlstm_inputs(cuda, torch.float32, 2, S, 512, seed=S)
+    _mlstm_close(ml.mlstm_parallel(*args), args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", ml.HEAD_DIMS)
+def test_mlstm_kernel_each_head_dim(cuda, hd, dtype):
+    """Every head dim the kernel is built for (k stages of min(hd, 64)
+    columns), at a ragged S."""
+    args = _mlstm_inputs(cuda, dtype, 2, 300, hd, seed=hd)
+    _mlstm_close(ml.mlstm_parallel(*args), args, _mlstm_tol(dtype)["atol"])
+
+
+@pytest.mark.parametrize("BH", [1, 16])
+def test_mlstm_kernel_batch_heads(cuda, BH):
+    """One (batch, head) and sixteen, the xlstm-350m prefill's B * H."""
+    args = _mlstm_inputs(cuda, torch.float32, BH, 320, 512, seed=BH)
+    _mlstm_close(ml.mlstm_parallel(*args), args)
+
+
+def test_mlstm_model_layout_views_at_head_dim_512(cuda):
+    """ops.mlstm at xlstm-350m's head dim: q/k/v transposed views of one
+    [B, S, 3*H*hd] product (rows 3*H*hd apart), F/i of one [B, S, 2H]."""
+    rng = np.random.default_rng(13)
+    B, S, H, hd = 2, 200, 4, 512
+    qkv = _on(cuda, rng.standard_normal((B, S, 3 * H * hd)), torch.float32)
+    q, k, v = (t.reshape(B, S, H, hd) for t in qkv.chunk(3, dim=-1))
+    v = v / hd ** 0.5
+    gates = _on(cuda, rng.standard_normal((B, S, 2 * H)), torch.float32)
+    i, f = gates.chunk(2, dim=-1)
+    F = torch.cumsum(torch.nn.functional.logsigmoid(f + 3.0), dim=1)
+    got = ops.mlstm(q, k, v, F, i)
+    want = ml.mlstm_parallel_plain(
+        *(t.transpose(1, 2) for t in (q, k, v, F, i))).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert got.shape == (B, S, H, hd) and got.is_contiguous()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_mlstm_copies_only_operands_without_16_byte_rows(cuda, monkeypatch):
+    """The wrapper copies q, k or v only where the kernel cannot read it:
+    model-layout views are read in place; a view one element off its
+    allocation and bfloat16 operands go in as float32 copies."""
+    copied = []
+    kernel_operand = ml._kernel_operand
+
+    def spy(t):
+        out = kernel_operand(t)
+        copied.append(out.data_ptr() != t.data_ptr())
+        return out
+
+    monkeypatch.setattr(ml, "_kernel_operand", spy)
+    rng = np.random.default_rng(14)
+    B, S, H, hd = 2, 96, 2, 128
+    qkv = _on(cuda, rng.standard_normal((B, S, 3 * H * hd + 4)),
+              torch.float32)
+    gates = _on(cuda, rng.standard_normal((B, H, 2, S)), torch.float32)
+    F = torch.cumsum(torch.nn.functional.logsigmoid(gates[:, :, 0] + 3.0),
+                     dim=-1)
+    i = gates[:, :, 1]
+    aligned = [t.reshape(B, S, H, hd).transpose(1, 2)
+               for t in qkv[..., :-4].chunk(3, dim=-1)]
+    off = [t.reshape(B, S, H, hd).transpose(1, 2)
+           for t in qkv[..., 1:-3].chunk(3, dim=-1)]
+    for q, k, v, want_copy in (
+            (*aligned, [False] * 3), (off[0], *aligned[1:], [True, False,
+                                                             False]),
+            (*(t.bfloat16() for t in aligned), [True] * 3)):
+        copied.clear()
+        got = ml.mlstm_parallel(q, k, v, F, i)
+        assert copied == want_copy
+        _mlstm_close(got, (q, k, v, F, i), _mlstm_tol(q.dtype)["atol"])
+
+
+@pytest.mark.parametrize("hd", ml.HEAD_DIMS)
+def test_mlstm_kernel_is_deterministic(cuda, hd):
+    """The same values give the same bits: on the first launch after other
+    inputs, again, and read from copies at other addresses (no shared
+    memory is read before the block has written it)."""
+    a = _mlstm_inputs(cuda, torch.float32, 2, 200, hd, seed=hd)
+    b = _mlstm_inputs(cuda, torch.float32, 2, 200, hd, seed=hd + 1)
+    first = ml.mlstm_parallel(*a)
+    ml.mlstm_parallel(*b)
+    again = ml.mlstm_parallel(*a)
+    copied = ml.mlstm_parallel(*(t.clone() for t in a))
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, copied)
+
+
+def _cancelling_inputs(dev, BH, S, hd, seed):
+    """q.k of alternating sign (consecutive kv rows carry opposite keys of
+    one random length along one direction, which every query shares), slow
+    forget gates and input gates near 3: each row's sum of S[t, s] is a
+    near-cancelling alternating sum, a median 1/27 of the sum of its |S|
+    at (2, 1024, 512) and above exp(-m) in 97% of the rows, so the signed
+    denominator amplifies the products' rounding.  float32, as the model
+    hands K6 its operands."""
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal(hd)
+    u /= np.linalg.norm(u)
+    q = rng.standard_normal((BH, S, hd)) * 0.1 / np.sqrt(hd) + u
+    length = np.repeat(rng.standard_normal((BH, S // 2, 1)) * 0.5 + 1.0, 2,
+                       axis=1)
+    sign = np.where(np.arange(S) % 2 == 0, 1.0, -1.0)[None, :, None]
+    k = length * sign * u + rng.standard_normal((BH, S, hd)) * 0.1 / np.sqrt(
+        hd)
+    v = rng.standard_normal((BH, S, hd)) / np.sqrt(hd)
+    F = np.cumsum(-np.logaddexp(0.0, -(3.0 + rng.standard_normal((BH, S)))),
+                  axis=1)
+    i = 3.0 + 0.1 * rng.standard_normal((BH, S))
+    return [_on(dev, a, torch.float32) for a in (q, k, v, F, i)]
+
+
+def test_mlstm_near_cancelling_denominator_against_float64(cuda):
+    """Where |sum_s S[t,s]| falls well below its terms, the kernel and the
+    float32 plain version are each held against the plain version in
+    float64; the kernel stays within 2e-4 of it.  Both distances are
+    printed (pytest -s)."""
+    args = _cancelling_inputs(cuda, 2, 1024, 512, seed=0)
+    exact = ml.mlstm_parallel_plain(*args, dtype=torch.float64)
+    got = ml.mlstm_parallel(*args)
+    plain32 = ml.mlstm_parallel_plain(*args)
+    torch.cuda.synchronize()
+    d_kernel = float((got.double() - exact).abs().max())
+    d_plain = float((plain32.double() - exact).abs().max())
+    print(f"near-cancelling denominator, max abs distance to float64: "
+          f"kernel {d_kernel}, float32 plain {d_plain}")
+    torch.testing.assert_close(got.double(), exact, rtol=2e-4, atol=2e-4)
 
 
 def _randn(dev, rng, shape, dtype, scale=1.0, shift=0.0):

@@ -148,3 +148,49 @@ def test_model_layout_matches_reference_block(B, S, H, hd):
         tq[:, t0:t0 + c], tF[:, t0:t0 + c], tk, tv, tF, ti, t0)
         for t0 in (0, c)], dim=1)
     np.testing.assert_allclose(chunked.numpy(), want, **F32)
+
+
+def _model_views(dtype=torch.float32):
+    """q/k/v [B, H, S, hd] as ops.mlstm hands them over: transposed views
+    of one [B, S, 3*H*hd] product's thirds (B 2, S 150, H 4, hd 64)."""
+    qkv = torch.zeros(2, 150, 3 * 4 * 64, dtype=dtype)
+    return [t.reshape(2, 150, 4, 64).transpose(1, 2)
+            for t in qkv.chunk(3, dim=-1)]
+
+
+@pytest.mark.parametrize("case,in_place", [
+    ("contiguous float32", True),
+    ("model-layout views", True),
+    ("size-1 dims of odd strides", True),
+    ("one element off its allocation", False),
+    ("rows 258 elements apart", False),
+    ("heads 2 elements apart", False),
+    ("bfloat16", False),
+])
+def test_kernel_reads_in_place_only_16_byte_rows(case, in_place):
+    """The CUDA wrapper hands K6 an operand as it is only where every row
+    starts on 16 bytes, which its cp.async copies need: float32, an aligned
+    base and batch, head and sequence strides that are multiples of 4
+    elements (a dim of size 1 never moves a row).  Any other operand goes
+    in as a float32 copy.  The rule is a pure function of the tensor,
+    pinned here on CPU tensors (their allocations are 64-byte aligned)."""
+    t = {
+        "contiguous float32": lambda: torch.zeros(2, 4, 150, 64),
+        "model-layout views": lambda: _model_views()[1],
+        "size-1 dims of odd strides": lambda: torch.zeros(150 * 64)
+        .as_strided((1, 1, 150, 64), (3, 5, 64, 1)),
+        "one element off its allocation": lambda: torch.zeros(
+            2, 4, 150, 65)[..., 1:],
+        "rows 258 elements apart": lambda: torch.zeros(2, 150, 258)[
+            ..., :256].unflatten(-1, (4, 64)).transpose(1, 2),
+        "heads 2 elements apart": lambda: torch.zeros(2, 150, 4 * 66)
+        .as_strided((2, 4, 150, 64), (150 * 264, 66, 264, 1)),
+        "bfloat16": lambda: _model_views(torch.bfloat16)[0],
+    }[case]()
+    assert t.shape[-1] == 64 and t.stride(-1) == 1
+    assert ml._reads_in_place(t) is in_place
+    copy = ml._kernel_operand(t)
+    assert (copy is t) is in_place
+    if not in_place:
+        assert copy.dtype == torch.float32 and copy.is_contiguous()
+        torch.testing.assert_close(copy, t.float(), rtol=0, atol=0)

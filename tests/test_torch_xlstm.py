@@ -12,6 +12,9 @@ function, and numpy-seeded tokens go through both:
     entry-point call per mLSTM block with K6 on, none with it off, and no
     kernel launch on the CPU.  A second case sets ``q_chunk`` below S so
     that the query-chunked branch runs on both sides;
+  * bf16 compute (B = 2, S = 130, K6 off and on): the port's prefill no
+    farther from the reference's bf16 prefill than that is from the
+    reference's float32 prefill;
   * ``decode_step`` over 8 positions against the reference's (2e-4) and
     against the port's own prefill (2e-2, as ``tests/test_arch_smoke.py``);
   * the greedy tokens of ``repro_torch.launch.serve``'s loop against the
@@ -140,6 +143,27 @@ def test_long_prefill_no_farther_from_float64_than_the_reference(
     ref_err = np.abs(ref32 - exact).max()
     port_err = np.abs(port32 - exact).max()
     assert port_err <= ref_err, (port_err, ref_err)
+
+
+@pytest.mark.parametrize("k6", [False, True])
+def test_bf16_prefill_within_the_reference_bf16_distance(built, count_k6,
+                                                         k6):
+    """bf16 compute, the full config's default: the port's bf16 prefill
+    (B = 2, S = 130, K6 off and on; on CPU tensors K6 is its plain version,
+    on float32 q/k/v as in the model) is no farther from the reference's
+    bf16 prefill than that is from the reference's own float32 prefill of
+    the same params and tokens (the rounding of bf16 itself), the rule
+    ``test_torch_models.py`` applies to the dense models."""
+    ref16, rparams, port, params = built(compute_dtype="bfloat16",
+                                         use_flash_kernel=k6)
+    ref32 = built()[0]
+    rb, pb = _tokens(port.config, 2, 130)
+    want = np.asarray(jax.jit(ref16.prefill)(rparams, rb), np.float32)
+    f32 = np.asarray(jax.jit(ref32.prefill)(rparams, rb), np.float32)
+    got = port.prefill(params, pb).float().numpy()
+    assert count_k6["mlstm"] == (_n_mlstm(port.config) if k6 else 0)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= np.abs(want - f32).max()
 
 
 def test_loss_matches_reference(built):
