@@ -522,9 +522,9 @@ class ColumnarPlacement:
             # height: no dispatch threshold has been measured on the card.
             U_w = self.U[rows_w]
             if fused:
-                # One pool-kernel launch: pools at both extremes and the
-                # per-server reductions; both full pick orderings per work
-                # item are ranked on the host from its outputs.
+                # One pool-kernel launch: pools at both extremes, the
+                # per-server reductions and each work item's full pick
+                # ordering under its picker, ranked on the device.
                 V, c_lo, c_hi, ord_w, ok_w = self._kern.pick_orders(
                     self.cluster, U_w, th_lo, th_hi, rho_w / u,
                     self._pick_ids[pid_w], job, device=self._device)

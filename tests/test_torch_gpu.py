@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.core import philly_cluster, philly_workload
+from repro_torch.core.cluster import Cluster
 from repro_torch.core.contention import _job_terms
 from repro_torch.kernels import LAUNCHES, ops, placement, tau
 from repro_torch.kernels import flash_attention as fa
@@ -139,22 +140,97 @@ def test_tau_kernel_equals_plain_at_scale(cuda, hetero, terms_2d, C, J, S):
         assert torch.equal(w, g)
 
 
+def _pool_args(dev, cluster, nw, G, pid, rng):
+    """K3 operands over ``nw`` random work rows of ``cluster``: idle GPUs
+    (exact-tie clocks), thetas from nearly empty to every GPU feasible,
+    lambda * G = 1.5 G."""
+    N = cluster.num_gpus
+    U = np.round(rng.uniform(0, 400, size=(nw, N)), 3)
+    U[:, rng.random(N) < 0.3] = 0.0
+    th_lo = rng.uniform(0, 700, size=nw)
+    th_lo[::5] = 1e4
+    ct = tau.cluster_tensors(cluster, dev)
+    return (_on(dev, U, torch.float64), _on(dev, th_lo, torch.float64),
+            _on(dev, th_lo + rng.uniform(0, 50, size=nw), torch.float64),
+            _on(dev, rng.uniform(5, 150, size=nw), torch.float64),
+            _on(dev, pid, torch.int64), G, 1.5 * G, ct["offsets"],
+            ct["caps"], _on(dev, cluster.gpu_server, torch.int64))
+
+
+def _pool_equal(args):
+    before = LAUNCHES["pool"]
+    got = placement.pool_stats(*args)
+    want = placement.pool_stats_plain(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["pool"] == before + 1
+    names = ("c_lo", "c_hi", "load", "cnt", "best_srv", "has_fit", "order",
+             "ok")
+    for name, w, g in zip(names, want, got):
+        assert w.dtype == g.dtype, name
+        assert torch.equal(w, g), name
+
+
 @pytest.mark.parametrize("G", [1, 4, 16, 64])
 def test_pool_kernel_equals_plain(cuda, G):
     cluster = _cluster(5, hetero=False)
     rng = np.random.default_rng(3)
-    U = np.round(rng.uniform(0, 30, size=(64, cluster.num_gpus)), 3)
-    U[:, :40] = 0.0                           # idle GPUs: exact-tie loads
-    th_lo = np.sort(rng.uniform(5, 40, size=64))
-    args = (_on(cuda, U, torch.float64), _on(cuda, th_lo, torch.float64),
-            _on(cuda, th_lo + 3.0, torch.float64),
-            _on(cuda, rng.uniform(0.5, 20, size=64), torch.float64))
-    ct = tau.cluster_tensors(cluster, cuda)
-    before = LAUNCHES["pool"]
-    got = placement.pool_stats(*args, G, ct["offsets"], ct["caps"])
-    want = placement.pool_stats_plain(*args, G, ct["offsets"], ct["caps"])
+    _pool_equal(_pool_args(cuda, cluster, 64, G, rng.integers(0, 2, 64),
+                           rng))
+
+
+def _wide_cluster(width):
+    """The §7 and scale-point clusters, a synthetic row wider than the
+    block and one shared-memory pass (2600 GPUs), and one whose 1002
+    servers need shared memory beyond the default 48 KB."""
+    if width == "s7":
+        return philly_cluster(20, seed=1)
+    if width == "scale":
+        return philly_cluster(32, seed=1)
+    if width == "wide":
+        return Cluster(capacities=(8,) * 325)
+    return Cluster(capacities=(2, 3, 4) * 334)
+
+
+@pytest.mark.parametrize("picker", ["fa_ffp", "lbsgf", "mixed"])
+@pytest.mark.parametrize("G", ["1", "8", "N"])
+@pytest.mark.parametrize("nw", [1, 64, 300])
+@pytest.mark.parametrize("width", ["s7", "scale", "wide", "many_servers"])
+def test_pool_kernel_equals_plain_at_widths(cuda, width, nw, G, picker):
+    cluster = _wide_cluster(width)
+    rng = np.random.default_rng(nw + cluster.num_gpus)
+    g = cluster.num_gpus if G == "N" else int(G)
+    pid = {"fa_ffp": np.zeros(nw, dtype=np.int64),
+           "lbsgf": np.ones(nw, dtype=np.int64),
+           "mixed": rng.integers(0, 2, nw)}[picker]
+    _pool_equal(_pool_args(cuda, cluster, nw, g, pid, rng))
+
+
+def _score_args(dev, S, C, hetero, rng):
+    """K4 operands: C random occupancy rows over S servers (some on one
+    server only), contention levels from 0 up, per-server device terms
+    (+inf where a class is absent) and the kernel's keyword scalars."""
+    Y = rng.integers(0, 4, size=(C, S)) * (rng.random((C, S)) < 0.3)
+    Y[::4] = 0
+    Y[::4, rng.integers(S)] = 8
+    Y[Y.sum(axis=1) == 0, 0] = 1
+    p = np.floor(rng.uniform(0, 9, size=C))
+    server = [rng.uniform(0.5, 50.0, S) for _ in range(3)]
+    for t in server[1:]:
+        t[rng.random(S) < 0.3] = np.inf
+    args = (_on(dev, Y, torch.int64), _on(dev, p, torch.float64),
+            *(_on(dev, t, torch.float64) for t in server),
+            (0.002, 0.001, 0.001 / 50.0, 0.02, 3000.0))
+    kw = dict(hetero=hetero, xi1=0.7, xi2=0.002, alpha=0.3, b_inter=1.25,
+              b_intra=300.0)
+    return args, kw
+
+
+def _score_equal(args, kw):
+    before = LAUNCHES["score"]
+    got = placement.score_rows(*args, **kw)
+    want = placement.score_rows_plain(*args, **kw)
     torch.cuda.synchronize()
-    assert LAUNCHES["pool"] == before + 1
+    assert LAUNCHES["score"] == before + 1
     for w, g in zip(want, got):
         assert torch.equal(w, g)
 
@@ -165,33 +241,84 @@ def test_score_kernel_equals_plain(cuda, hetero):
     S = cluster.num_servers
     rng = np.random.default_rng(4)
     Y = rng.integers(0, 3, size=(64, S))
-    f = 1.0 + rng.uniform(0, 3, size=64)
-    gamma = cluster.xi2 * (Y > 0).sum(axis=1)
-    scalars = np.array([0.002, 0.001, 0.001 / 50.0, 0.02, 3000.0])
+    Y[Y.sum(axis=1) == 0, 0] = 1
+    p = rng.integers(0, 8, size=64).astype(np.float64)
     ct = tau.cluster_tensors(cluster, cuda)
-    args = (_on(cuda, Y, torch.int64), _on(cuda, f, torch.float64),
-            _on(cuda, gamma, torch.float64),
-            _on(cuda, scalars, torch.float64), ct["speed_floor"],
-            ct["uplink_sh"], ct["uplink_iso"])
-    kw = dict(hetero=hetero, b_inter=cluster.b_inter,
+    args = (_on(cuda, Y, torch.int64), _on(cuda, p, torch.float64),
+            ct["speed_floor"], ct["uplink_sh"], ct["uplink_iso"],
+            (0.002, 0.001, 0.001 / 50.0, 0.02, 3000.0))
+    kw = dict(hetero=hetero, xi1=cluster.xi1, xi2=cluster.xi2,
+              alpha=cluster.alpha, b_inter=cluster.b_inter,
               b_intra=cluster.b_intra)
+    _score_equal(args, kw)
+
+
+@pytest.mark.parametrize("hetero", [False, True])
+@pytest.mark.parametrize("C", [1, 64, 1000])
+@pytest.mark.parametrize("S", [20, 32, 300])
+def test_score_kernel_equals_plain_at_shapes(cuda, S, C, hetero):
+    """S = 300: more servers than a warp's lanes, each lane strides."""
+    _score_equal(*_score_args(cuda, S, C, hetero,
+                              np.random.default_rng(S + C)))
+
+
+def _pick_case(rng, N, nw):
+    U = np.round(rng.uniform(0, 400, size=(nw, N)), 3)
+    U[:, rng.random(N) < 0.3] = 0.0
+    th_lo = rng.uniform(100, 700, size=nw)
+    return (U, th_lo, th_lo + rng.uniform(0, 50, size=nw),
+            rng.uniform(5, 150, size=nw), rng.integers(0, 2, nw))
+
+
+def test_pick_orders_reuses_pinned_buffers(cuda):
+    """Back-to-back entry-point calls of 64, 8 and 300 rows (the last
+    grows the pinned buffers): each equals the CPU path, and a result is
+    not overwritten by the calls after it."""
+    cluster = philly_cluster(20, seed=1)
+    job = philly_workload(seed=1)[7]
+    rng = np.random.default_rng(12)
+    cases = [_pick_case(rng, cluster.num_gpus, nw) for nw in (64, 8, 300)]
+    before = LAUNCHES["pool"]
+    got = [placement.pick_orders(cluster, *c, job) for c in cases]
+    kept = [a.copy() for a in got[0]]
+    assert LAUNCHES["pool"] == before + 3
+    for case, res in zip(cases, got):
+        want = placement.pick_orders(cluster, *case, job, device="cpu")
+        for w, g in zip(want, res):
+            assert w.dtype == g.dtype and np.array_equal(w, g)
+    for k, g in zip(kept, got[0]):
+        assert np.array_equal(k, g)
+
+
+@pytest.mark.parametrize("hetero", [False, True])
+def test_score_probes_reuses_pinned_buffers(cuda, hetero):
+    cluster = philly_cluster(20, seed=1, **(HETERO if hetero else {}))
+    jobs = philly_workload(seed=1)
+    S = cluster.num_servers
+    rng = np.random.default_rng(13)
     before = LAUNCHES["score"]
-    got = placement.score_rows(*args, **kw)
-    want = placement.score_rows_plain(*args, **kw)
-    torch.cuda.synchronize()
-    assert LAUNCHES["score"] == before + 1
-    for w, g in zip(want, got):
-        assert torch.equal(w, g)
+    for i, C in enumerate((64, 8, 300)):
+        Y = rng.integers(0, 3, size=(C, S)) * (rng.random((C, S)) < 0.3)
+        Y[Y.sum(axis=1) == 0, 0] = 1
+        p = np.floor(rng.uniform(0, 9, size=C))
+        got = placement.score_probes(cluster, jobs[i], Y, p)
+        want = placement.score_probes(cluster, jobs[i], Y, p, device="cpu")
+        for w, g in zip(want, got):
+            assert np.array_equal(w, g)
+    assert LAUNCHES["score"] == before + 3
 
 
 def test_cuda_tensor_never_takes_the_plain_path(cuda):
     """A CUDA tensor launches the kernel (counted) or raises."""
     bad = torch.zeros((2, 3), dtype=torch.float32, device=cuda)
+    f64 = torch.zeros(2, dtype=torch.float64, device=cuda)
     with pytest.raises(TypeError, match="dtype"):
-        placement.pool_stats(bad, *(torch.zeros(2, dtype=torch.float64,
-                                                device=cuda),) * 3, 1,
+        placement.pool_stats(bad, f64, f64, f64,
+                             torch.zeros(2, dtype=torch.int64, device=cuda),
+                             1, 1.0,
                              torch.zeros(1, dtype=torch.int64, device=cuda),
-                             torch.ones(1, dtype=torch.int64, device=cuda))
+                             torch.ones(1, dtype=torch.int64, device=cuda),
+                             torch.zeros(3, dtype=torch.int64, device=cuda))
 
 
 def _tol(dtype):
@@ -581,19 +708,25 @@ def test_rmsnorm_kernel_close_to_plain(cuda, rows, d, dtype):
 
 def test_rmsnorm_bf16_scale_is_one_launch(cuda):
     """A bf16 scale goes to the kernel as it is: one kernel on the card
-    (the K7 kernel, no cast before it) and one counted launch."""
-    from torch.profiler import ProfilerActivity, profile
+    (the K7 kernel, no cast before it) and one counted launch.  The call
+    is traced after a warm-up step of the same call: a tracer just
+    started can lose the first device events."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     rng = np.random.default_rng(14)
     x = _randn(cuda, rng, (64, 2048), torch.bfloat16)
     s = _randn(cuda, rng, (2048,), torch.bfloat16, shift=1.0)
     torch.cuda.synchronize()
     before = LAUNCHES["rmsnorm"]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        got = rn.rmsnorm(x, s)
-        torch.cuda.synchronize()
-    assert LAUNCHES["rmsnorm"] == before + 1
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(
+            wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            got = rn.rmsnorm(x, s)
+            torch.cuda.synchronize()
+            prof.step()
+    assert LAUNCHES["rmsnorm"] == before + 2
     kernels = [e for e in prof.key_averages()
-               if e.self_device_time_total > 0]
+               if e.self_device_time_total > 0
+               and not e.key.startswith("ProfilerStep")]
     assert [e.count for e in kernels] == [1], [e.key for e in kernels]
     assert "rmsnorm" in kernels[0].key
     torch.testing.assert_close(got.float(), rn.rmsnorm_plain(x, s).float(),

@@ -12,7 +12,10 @@ tolerance:
     [C, J] terms;
   * ``pick_orders`` / ``score_probes`` against the reference's Pallas
     path (``use_kernel=True``, dispatch threshold forced to 0) and its
-    NumPy fallback, fuzzed over random clock states.
+    NumPy fallback, fuzzed over random clock states and on the ranking's
+    edge cases (no feasible GPU, no server fitting G, tied and signed-zero
+    clocks, an LBSGF prefix of every server, G = N), with the degradation
+    terms derived from p.
 
 ``tests/test_torch_gpu.py`` holds each CUDA kernel against its plain
 version on the card.
@@ -27,6 +30,7 @@ import torch
 import repro.kernels.placement as ref_kp
 from repro.core import philly_cluster as ref_philly_cluster
 from repro.core import philly_workload as ref_philly_workload
+from repro.core.cluster import Cluster as RefCluster
 from repro.core.contention import _job_terms as ref_job_terms
 from repro.core.contention import evaluate_many as ref_evaluate_many
 from repro.kernels.tau import tau_stack as ref_tau_stack
@@ -144,8 +148,12 @@ def _pick_case(seed, hetero):
     return cluster, jobs
 
 
+RANKING_CASES = ("no_feasible", "no_fit", "idle_ties", "m_eq_S", "G_eq_N",
+                 "signed_zeros")
+
+
 class TestPickOrders:
-    """K3: pool statistics + host rankings, fuzzed over clock states."""
+    """K3: pool statistics and pick rankings, fuzzed over clock states."""
 
     @pytest.mark.parametrize("seed", [5, 6])
     def test_matches_reference_kernel_and_numpy(self, seed, x64,
@@ -186,12 +194,114 @@ class TestPickOrders:
         U[0, 4:] = 1.0                        # servers 1 and 2 tie on load
         th = torch.tensor([2.0, 0.5], dtype=torch.float64)
         rho = torch.tensor([0.5, 1.0], dtype=torch.float64)
-        _, c_lo, _, load, cnt, best, fit = placement.pool_stats(
-            U, th, th, rho, 4, offsets, caps)
+        pid = torch.zeros(2, dtype=torch.int64)
+        gpu_server = torch.arange(3).repeat_interleave(4)
+        c_lo, _, load, cnt, best, fit, order, ok = placement.pool_stats(
+            U, th, th, rho, pid, 4, 4.0, offsets, caps, gpu_server)
         assert load.tolist() == [[0.0, 4.0, 4.0], [0.0, 0.0, 0.0]]
         assert cnt.tolist() == [[4, 4, 4], [0, 0, 0]]
         assert best.tolist() == [1, 0] and fit.tolist() == [True, False]
         assert c_lo.tolist() == [12, 0]
+        # FA-FFP packs into server 1 (GPUs 4-7), the rest in id order;
+        # with no feasible GPU every key is inf and the order is the ids.
+        assert order.tolist() == [[4, 5, 6, 7, 0, 1, 2, 3, 8, 9, 10, 11],
+                                  list(range(12))]
+        assert ok.tolist() == [True, False]
+
+    def test_packed_output_layout(self):
+        """unpack_pool reads the layout the pool kernel writes: c_lo,
+        c_hi, ok, order first (what pick_orders copies back), then
+        best_srv, has_fit, load as float64 bits and cnt; the flags as
+        bool bytes at the start of their words (the rest never read)."""
+        B, N, S = 2, 3, 2
+        load = torch.tensor([[1.5, -0.0], [2.25, 7.0]], dtype=torch.float64)
+        packed = torch.tensor(
+            [4, 5, 6, 7, -1, -1, 2, 0, 1, 1, 2, 0, 1, 0, -1, -1]
+            + load.view(torch.int64).ravel().tolist() + [3, 2, 1, 0],
+            dtype=torch.int64)
+        assert packed.numel() == placement.pool_words(B, N, S)
+        packed[4:6].view(torch.uint8)[:B] = torch.tensor([1, 0])  # ok
+        packed[14:16].view(torch.uint8)[:B] = torch.tensor([0, 1])  # fit
+        c_lo, c_hi, got_load, cnt, best, fit, order, ok = \
+            placement.unpack_pool(packed, B, N, S)
+        assert c_lo.tolist() == [4, 5] and c_hi.tolist() == [6, 7]
+        assert ok.tolist() == [True, False]
+        assert order.tolist() == [[2, 0, 1], [1, 2, 0]]
+        assert best.tolist() == [1, 0] and fit.tolist() == [False, True]
+        assert torch.equal(got_load, load)
+        assert got_load[0, 1].item() == 0.0 and \
+            torch.signbit(got_load[0, 1]).item()
+        assert cnt.tolist() == [[3, 2], [1, 0]]
+
+    def test_pool_rejects_rows_beyond_shared_memory(self):
+        """A row whose servers overflow a block's shared memory raises
+        (on every device) instead of launching."""
+        S = 5000
+        caps = torch.ones(S, dtype=torch.int64)
+        f64 = torch.zeros(1, dtype=torch.float64)
+        with pytest.raises(ValueError, match="shared memory"):
+            placement.pool_stats(
+                torch.zeros((1, S), dtype=torch.float64), f64, f64, f64,
+                torch.zeros(1, dtype=torch.int64), 1, 1.0,
+                torch.arange(S, dtype=torch.int64), caps,
+                torch.arange(S, dtype=torch.int64))
+
+    @pytest.mark.parametrize("equal_caps", [True, False])
+    @pytest.mark.parametrize("case", RANKING_CASES)
+    def test_rankings_match_reference_on_edge_cases(self, case, equal_caps,
+                                                    x64, monkeypatch):
+        """Both pickers mixed in one batch, on an equal-capacity and an
+        unequal-capacity (Philly) cluster, against the reference's NumPy
+        and Pallas paths: rows with no feasible GPU, no server fitting G,
+        exact-tie idle clocks, an LBSGF prefix of every server, G = N and
+        clocks of both zero signs."""
+        ref_cluster = (RefCluster(capacities=(8,) * 5) if equal_caps
+                       else ref_philly_cluster(6, seed=8))
+        base = ref_philly_workload(seed=8, mix=((4, 1),))[0]
+        N = ref_cluster.num_gpus
+        caps = ref_cluster.capacities_array
+        rng = np.random.default_rng(2 * RANKING_CASES.index(case)
+                                    + equal_caps)
+        nw = 12
+        U = np.round(rng.uniform(0, 30, size=(nw, N)), 3)
+        th_lo = np.sort(rng.uniform(5, 40, size=nw))
+        th_hi = th_lo + rng.uniform(0, 10, size=nw)
+        rho_u = rng.uniform(0.5, 20, size=nw)
+        pid = np.arange(nw) % 2
+        G, lam = 4, 1.0
+        if case == "no_feasible":
+            th_lo[::3] = 0.1                  # V >= rho_u >= 0.5
+        elif case == "no_fit":
+            G = int(caps.max()) + 1           # no server can hold the job
+            th_lo += 30.0
+        elif case == "idle_ties":
+            U[:, rng.random(N) < 0.6] = 0.0
+            U[1::2, : N // 2] = 5.0           # equal busy clocks
+        elif case == "m_eq_S":
+            lam = 1e6                         # lambda * G past every cap
+        elif case == "G_eq_N":
+            G = N
+            th_lo[::2] = 1e3                  # every GPU feasible
+            th_hi[::2] = 1e3
+        elif case == "signed_zeros":
+            U[:, rng.random(N) < 0.3] = 0.0
+            U[:, rng.random(N) < 0.3] = -0.0
+            th_lo[::4] = th_lo[::4] * 0.0
+            rho_u[::4] = -0.0
+        ref_job = dataclasses.replace(base, num_gpus=G, lam=lam)
+        cluster, (job,) = _carry(ref_cluster, [ref_job])
+        got = placement.pick_orders(cluster, U.copy(), th_lo, th_hi, rho_u,
+                                    pid, job, device="cpu")
+        monkeypatch.setattr(ref_kp, "DISPATCH_MIN_ROWS", 10**9)
+        want_np = ref_kp.pick_orders(ref_cluster, U.copy(), th_lo, th_hi,
+                                     rho_u, pid, ref_job)
+        monkeypatch.setattr(ref_kp, "DISPATCH_MIN_ROWS", 0)
+        want_k = ref_kp.pick_orders(ref_cluster, U.copy(), th_lo, th_hi,
+                                    rho_u, pid, ref_job, use_kernel=True)
+        for a, b, c in zip(want_np, want_k, got):
+            assert np.asarray(a).dtype == c.dtype
+            assert np.array_equal(np.asarray(a), c)
+            assert np.array_equal(np.asarray(b), c)
 
 
 class TestScoreProbes:
@@ -223,3 +333,43 @@ class TestScoreProbes:
             for a, b, c in zip(want_np, want_k, got):
                 assert np.array_equal(np.asarray(a), c), f"trial {trial}"
                 assert np.array_equal(np.asarray(b), c), f"trial {trial}"
+
+    @pytest.mark.parametrize("hetero", [False, True])
+    @pytest.mark.parametrize("equal_caps", [True, False])
+    def test_degradation_from_p_matches_reference(self, hetero, equal_caps,
+                                                  x64, monkeypatch):
+        """k = max(xi1 * p, 1), f and gamma = xi2 * n_srv now come from p
+        inside the kernel's plain version: p at 0 (k clamped to 1),
+        fractional and large, single-server rows (n_srv = 1) and
+        one-candidate batches, against both reference paths."""
+        if equal_caps:
+            het = dict(gpu_speeds=(50.0, 12.5) * 20,
+                       links=((1.25, "shared"), (1.25, "isolated")) * 2
+                       + ((2.5, "shared"),)) if hetero else {}
+            ref_cluster = RefCluster(capacities=(8,) * 5, **het)
+        else:
+            ref_cluster = ref_philly_cluster(6, seed=9,
+                                             **(HETERO if hetero else {}))
+        assert ref_cluster.is_heterogeneous == hetero
+        ref_jobs = ref_philly_workload(seed=9, mix=((1, 2), (4, 2), (8, 2)))
+        cluster, jobs = _carry(ref_cluster, ref_jobs)
+        S = cluster.num_servers
+        rng = np.random.default_rng(23 + 2 * hetero + equal_caps)
+        for trial, C in enumerate((1, 7, 30)):
+            i = trial % len(jobs)
+            Y = rng.integers(0, 3, size=(C, S)) * (rng.random((C, S)) < 0.5)
+            Y[::3] = 0
+            Y[::3, rng.integers(S)] = jobs[i].num_gpus   # one server only
+            Y[Y.sum(axis=1) == 0, 0] = 1
+            p = np.concatenate([[0.0], rng.uniform(0, 9, size=C)])[:C]
+            p[1::4] = np.round(p[1::4])
+            got = placement.score_probes(cluster, jobs[i], Y, p,
+                                         device="cpu")
+            monkeypatch.setattr(ref_kp, "DISPATCH_MIN_ROWS", 10**9)
+            want_np = ref_kp.score_probes(ref_cluster, ref_jobs[i], Y, p)
+            monkeypatch.setattr(ref_kp, "DISPATCH_MIN_ROWS", 0)
+            want_k = ref_kp.score_probes(ref_cluster, ref_jobs[i], Y, p,
+                                         use_kernel=True)
+            for a, b, c in zip(want_np, want_k, got):
+                assert np.array_equal(np.asarray(a), c), f"C={C}"
+                assert np.array_equal(np.asarray(b), c), f"C={C}"

@@ -206,7 +206,7 @@ class TestRunScenario:
 
 def _port_sources():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py"]
+        [ROOT / "chip_smoke.py"] + sorted((ROOT / "chip_probes").glob("*.py"))
 
 
 class TestPortIsStandalone:
