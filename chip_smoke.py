@@ -107,6 +107,30 @@ per-launch floor (one in-place add on a one-element tensor):
      flow on, so the logits must be ``torch.equal`` to an unpatched
      prefill's.  One more checked bf16 prefill runs under torch.profiler
      for its device busy time and K8's part of it.
+  9. service -- the scheduler service (``repro_torch.service``) on the
+     card, where every decision's candidates are priced in one stack by K1
+     (homogeneous) or K2 (heterogeneous), each run held bitwise against
+     the port's ``device="cpu"`` run with the reference defaults: (a) the
+     §7 online stream (``philly_cluster(20, seed=1)``, the 160-job
+     workload as ``poisson_arrivals(rate=0.5, seed=1)``), homogeneous and
+     heterogeneous, drained by ``SchedulerService(..., device="cuda")``
+     for sjf-bco, sjf-bco-dynamic, gadget-elastic and wang-ca, also held
+     against ``schedule_arrivals`` and ``run_online(..., device="cuda")``;
+     (b) the service benchmark's traffic at |J| = 1024 on 64 servers
+     (Poisson gaps of mean 2 slots; waves of 32 every 64 slots) under
+     sjf-bco: decisions/s, p50/p99/max decision ms and drain wall, card
+     beside CPU, and K1 launches a decision; (c) the Poisson drain against
+     a sqlite journal (appends/s), that journal cut in half, recovered on
+     the card (U/R bitwise equal to the CPU's recovery of the same cut),
+     the rest resubmitted and drained equal to the uncut drain; the same
+     for sjf-bco-dynamic's §7 journal, which holds evict records; (d)
+     ``run_scenario(Scenario(policy="sjf-bco-dynamic"), device="cuda")``
+     on the §7 setting, {hom, het} x {incremental, batched}; (e) the §6
+     certificate (``theory.report``) of the §7 homogeneous sjf-bco run,
+     equal and certified on both devices, and ``replay_trace`` of
+     ``examples/sample_trace.csv`` into a card daemon.  The counters are
+     zeroed before each run; K1 must launch in every homogeneous drain and
+     K2 in every heterogeneous one.
 
 float32 matrix products run in full float32 throughout
 (``torch.backends.cuda.matmul.allow_tf32 = False``, set in ``main``): the
@@ -490,23 +514,23 @@ def entry_point_copies(torch, np, rt, dev, gate: bool = True) -> None:
               "ms", flush=True)
 
 
-def device_profile(torch, rt, spec, wall_s: float) -> None:
-    """Device busy time of one more card run of ``spec`` under
-    torch.profiler (CUDA activity only), against the unprofiled wall
-    seconds ``wall_s`` of the same run: the device's idle share."""
+def device_profile(torch, label: str, fn, wall_s: float) -> None:
+    """Device busy time of one more card run ``fn()`` under torch.profiler
+    (CUDA activity only), against the unprofiled wall seconds ``wall_s``
+    of the same run: the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        rt.run_scenario(spec, device="cuda")
+        fn()
         torch.cuda.synchronize()
     rows = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in prof.key_averages()
                    if e.self_device_time_total > 0), reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
     if not rows:
-        print("device profile: the profiler recorded no device time "
-              "(not measured)")
+        print(f"device profile of {label}: the profiler recorded no device "
+              "time (not measured)")
         return
-    print(f"device profile of the §7 homogeneous batched run: device busy "
+    print(f"device profile of {label}: device busy "
           f"{busy_s:.6f} s of {wall_s:.6f} s wall, idle share "
           f"{1.0 - busy_s / wall_s:.6f}", flush=True)
     for us, count, key in rows[:8]:
@@ -605,7 +629,9 @@ def end_to_end_phase(torch, rt, kernels, totals: dict) -> None:
           f"makespan {card_sim.makespan}; card {t_card:.3f} s, cpu "
           f"{t_host:.3f} s; launches {counts}", flush=True)
     print_entry_points(in_kernels, in_calls, t_card)
-    device_profile(torch, rt, *walls[("hom", "batched")])
+    spec, wall = walls[("hom", "batched")]
+    device_profile(torch, "the §7 homogeneous batched run",
+                   lambda: rt.run_scenario(spec, device="cuda"), wall)
 
 
 def flash_phase(torch, np, dev) -> dict:
@@ -1509,6 +1535,325 @@ def entry_point_phase(torch, np, kernels, totals: dict, dev) -> None:
           f"{counts}", flush=True)
 
 
+SERVICE_POLICIES = ("sjf-bco", "sjf-bco-dynamic", "gadget-elastic", "wang-ca")
+SERVICE_HORIZON = 10**6        # an open-ended stream: the budget is the horizon
+
+
+def same_drain(np, a, b) -> bool:
+    """Two (schedule, sim) pairs bit for bit: the schedule's fields and
+    quotas, every job's start and finish, makespan, avg JCT, the events."""
+    (sa, ma), (sb, mb) = a, b
+    return (same_schedule(sa, sb)
+            and (sa.quotas is None) == (sb.quotas is None)
+            and (sa.quotas is None or bool(np.array_equal(sa.quotas,
+                                                          sb.quotas)))
+            and bool(np.array_equal(ma.start, mb.start))
+            and bool(np.array_equal(ma.finish, mb.finish))
+            and (ma.makespan, ma.avg_jct, ma.completed)
+            == (mb.makespan, mb.avg_jct, mb.completed)
+            and ma.events == mb.events)
+
+
+def service_drain(torch, svc_mod, cluster, jobs, arrivals, policy, device,
+                  **kw):
+    """Submit the whole stream to a fresh service and drain it; returns
+    (service, (schedule, sim), wall seconds)."""
+    svc = svc_mod.SchedulerService(cluster, policy=policy, device=device,
+                                   horizon=SERVICE_HORIZON, **kw)
+    t0 = time.perf_counter()
+    for job, arrival in zip(jobs, arrivals):
+        svc.submit(svc_mod.SubmitRequest(job, int(arrival)))
+    out = svc.drain()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return svc, out, time.perf_counter() - t0
+
+
+def decision_stats(np, svc, schedule) -> str:
+    lat = np.asarray(svc.daemon.decision_latencies)
+    placed = len(schedule.assignment)
+    return (f"{placed} placed in {len(lat)} decisions, "
+            f"{placed / lat.sum():.1f} decisions/s, decision ms p50 "
+            f"{np.percentile(lat, 50) * 1e3:.6f} p99 "
+            f"{np.percentile(lat, 99) * 1e3:.6f} max "
+            f"{lat.max() * 1e3:.6f}")
+
+
+def service_trace(np, rt, n_jobs: int, traffic: str, seed: int = 1):
+    """The service benchmark's submission trace: |J| Philly-mix jobs on
+    max(20, |J| // 16) servers; Poisson gaps of mean 2 slots, or waves of
+    32 simultaneous submissions every 64 slots."""
+    cluster = rt.philly_cluster(max(20, n_jobs // 16), seed=seed)
+    jobs = rt.philly_workload(seed=seed, mix=mix_for(n_jobs))
+    rng = np.random.default_rng(seed)
+    if traffic == "poisson":
+        arrivals = np.floor(np.cumsum(
+            rng.exponential(2.0, size=len(jobs)))).astype(np.int64)
+    else:
+        wave = np.repeat(np.arange((len(jobs) + 31) // 32), 32)[:len(jobs)]
+        arrivals = (wave * 64).astype(np.int64)
+    return cluster, jobs, arrivals
+
+
+def cut_journal(svc_mod, entries, paths) -> None:
+    """Write the first half of a journal into fresh sqlite stores: the
+    journal a daemon killed mid-stream leaves behind."""
+    for path in paths:
+        store = svc_mod.SqliteStore(path)
+        for e in entries[:len(entries) // 2]:
+            store.append(e.kind, e.jid, e.payload, ts=e.ts)
+        store.close()
+
+
+def recover_and_finish(torch, np, svc_mod, workdir, tag, entries, policy,
+                       jobs, arrivals, want, label) -> None:
+    """Recover a cut journal on the card and on the CPU, hold the card's
+    clocks at the cut against the CPU's (the uncut daemon's clocks at that
+    entry: replay is exact), then resubmit the rest of the stream on the
+    card and hold its drain against the uncut one."""
+    card_path = str(workdir / f"{tag}_cut.db")
+    cpu_path = str(workdir / f"{tag}_cut_cpu.db")
+    cut_journal(svc_mod, entries, (card_path, cpu_path))
+    t0 = time.perf_counter()
+    rec = svc_mod.SchedulerService.recover(None, card_path, policy=policy,
+                                           device="cuda",
+                                           horizon=SERVICE_HORIZON)
+    t_rec = time.perf_counter() - t0
+    host = svc_mod.SchedulerService.recover(None, cpu_path, policy=policy,
+                                            device="cpu",
+                                            horizon=SERVICE_HORIZON)
+    a, b = rec.daemon.state, host.daemon.state
+    if not (np.array_equal(a.U, b.U) and np.array_equal(a.R, b.R)
+            and a.est_finish == b.est_finish):
+        fail(f"{label}: the card's recovered clocks differ from the CPU's")
+    n_cut = len(rec.daemon.jobs)
+    for job, arrival in list(zip(jobs, arrivals))[n_cut:]:
+        rec.submit(svc_mod.SubmitRequest(job, int(arrival)))
+    got = rec.drain()
+    torch.cuda.synchronize()
+    if not same_drain(np, want, got):
+        fail(f"{label}: the recovered drain differs from the uncut one")
+    print(f"{label}: cut at entry {len(entries) // 2} of {len(entries)} "
+          f"({n_cut} jobs journaled), recovered on the card in "
+          f"{t_rec:.6f} s with U/R bitwise equal to the CPU's; the rest "
+          f"resubmitted and drained bitwise equal to the uncut drain",
+          flush=True)
+    rec.close()
+    host.close()
+
+
+def service_phase(torch, np, rt, kernels, totals: dict) -> None:
+    """Phase 9: the scheduler service on the card, every drain held
+    bitwise against the port's CPU service with the reference defaults."""
+    import tempfile
+
+    import repro_torch.service as svc_mod
+    from repro_torch.core.online import (poisson_arrivals, run_online,
+                                         stream_request)
+    from repro_torch.core.theory import report
+    from repro_torch.core.trace import replay_trace
+
+    t_phase = time.perf_counter()
+
+    def counted(label, needs):
+        counts = kernels.launch_counts()
+        for name in needs:
+            if counts[name] <= 0:
+                fail(f"{label}: kernel {name} was never launched")
+        for name, n in counts.items():
+            totals[name] += n
+        return counts
+
+    # 1. The §7 online stream through the service, four policies.
+    streams = {}
+    for kind in ("hom", "het"):
+        cluster = rt.philly_cluster(20, seed=1,
+                                    **(HETERO if kind == "het" else {}))
+        stream = poisson_arrivals(rt.philly_workload(seed=1), rate=0.5,
+                                  seed=1)
+        request = stream_request(cluster, stream, horizon=SERVICE_HORIZON)
+        streams[kind] = (cluster, stream, request.jobs, request.arrivals)
+        tau = "tau_het" if kind == "het" else "tau"
+        for policy in SERVICE_POLICIES:
+            label = f"service §7 {kind} {policy}"
+            kernels.reset_launch_counts()
+            card, got, t_card = service_drain(
+                torch, svc_mod, cluster, request.jobs, request.arrivals,
+                policy, "cuda")
+            counts = counted(label, (tau,))
+            host, want, t_host = service_drain(
+                torch, svc_mod, cluster, request.jobs, request.arrivals,
+                policy, "cpu")
+            if not same_drain(np, got, want):
+                fail(f"{label}: the card's drain differs from the CPU's")
+            oneshot = rt.get_policy(policy)(request)
+            if not same_schedule(oneshot, got[0]):
+                fail(f"{label}: the drain differs from schedule_arrivals")
+            kernels.reset_launch_counts()
+            asg, sim = run_online(cluster, stream, policy=policy,
+                                  device="cuda")
+            torch.cuda.synchronize()
+            online_counts = counted(f"{label} run_online", (tau,))
+            if len(asg) != len(got[0].assignment) or not all(
+                    j1 == j2 and bool((g1 == g2).all()) for (j1, g1), (j2, g2)
+                    in zip(asg, got[0].assignment)) or \
+                    not np.array_equal(sim.finish, got[1].finish):
+                fail(f"{label}: run_online on the card differs from the "
+                     "drain")
+            evicts = sum(e.kind in ("evict", "resize")
+                         for e in card.daemon.store.entries())
+            decisions = len(card.daemon.decision_latencies)
+            if kind == "hom" and policy == "sjf-bco-dynamic":
+                streams["dynamic"] = (card.daemon.store.entries(), got)
+            print(f"{label}: bitwise equal to the CPU drain, to "
+                  f"schedule_arrivals and to run_online on the card; "
+                  f"makespan {got[1].makespan} avg_jct {got[1].avg_jct}; "
+                  f"{evicts} evict/resize records; card {t_card:.6f} s, "
+                  f"cpu {t_host:.6f} s; {tau} {counts[tau]} launches "
+                  f"({counts[tau] / decisions:.3f} a decision), run_online "
+                  f"{online_counts[tau]}; "
+                  f"{decision_stats(np, card, got[0])}", flush=True)
+
+    # 2. The service benchmark's traffic at |J| = 1024, card beside CPU.
+    spent, calls = time_entry_points()
+    drains = {}
+    for traffic in ("poisson", "burst"):
+        cluster, jobs, arrivals = service_trace(np, rt, 1024, traffic)
+        label = (f"service |J|={len(jobs)} S={cluster.num_servers} "
+                 f"{traffic} sjf-bco")
+        kernels.reset_launch_counts()
+        spent.update(dict.fromkeys(spent, 0.0))
+        calls.update(dict.fromkeys(calls, 0))
+        card, got, t_card = service_drain(torch, svc_mod, cluster, jobs,
+                                          arrivals, "sjf-bco", "cuda")
+        in_kernels, in_calls = dict(spent), dict(calls)
+        counts = counted(label, ("tau",))
+        host, want, t_host = service_drain(torch, svc_mod, cluster, jobs,
+                                           arrivals, "sjf-bco", "cpu")
+        if not same_drain(np, got, want):
+            fail(f"{label}: the card's drain differs from the CPU's")
+        drains[traffic] = (cluster, jobs, arrivals, got, t_card)
+        decisions = len(card.daemon.decision_latencies)
+        print(f"{label}: bitwise equal to the CPU drain; {card.daemon.rounds}"
+              f" rounds; K1 {counts['tau']} launches "
+              f"({counts['tau'] / decisions:.3f} a decision)", flush=True)
+        print(f"  card: drain wall {t_card:.6f} s; "
+              f"{decision_stats(np, card, got[0])}", flush=True)
+        print(f"  cpu:  drain wall {t_host:.6f} s; "
+              f"{decision_stats(np, host, want[0])}", flush=True)
+        print_entry_points(in_kernels, in_calls, t_card)
+    cluster, jobs, arrivals, _, wall = drains["poisson"]
+    kernels.reset_launch_counts()
+    device_profile(torch, f"the |J|={len(jobs)} poisson service drain",
+                   lambda: service_drain(torch, svc_mod, cluster, jobs,
+                                         arrivals, "sjf-bco", "cuda"), wall)
+    counted("service profile", ("tau",))
+
+    # 3. Journal durability and recovery on the card.
+    workdir_root = ROOT / "build"
+    workdir_root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=workdir_root) as td:
+        workdir = Path(td)
+        cluster, jobs, arrivals, uncut, t_mem = drains["poisson"]
+        label = f"service |J|={len(jobs)} poisson sqlite"
+        kernels.reset_launch_counts()
+        card, got, t_sql = service_drain(
+            torch, svc_mod, cluster, jobs, arrivals, "sjf-bco", "cuda",
+            store_path=str(workdir / "journal.db"))
+        counted(label, ("tau",))
+        entries = card.daemon.store.entries()
+        card.close()
+        if not same_drain(np, got, uncut):
+            fail(f"{label}: the sqlite-journaled drain differs from the "
+                 "in-memory one")
+        print(f"{label}: {len(entries)} entries, "
+              f"{len(entries) / t_sql:.1f} appends/s; drain wall "
+              f"{t_sql:.6f} s against {t_mem:.6f} s in memory", flush=True)
+        kernels.reset_launch_counts()
+        recover_and_finish(torch, np, svc_mod, workdir, "poisson", entries,
+                           "sjf-bco", jobs, arrivals, uncut,
+                           f"{label} recovery")
+        counted(f"{label} recovery", ("tau",))
+        cluster, stream, jobs, arrivals = streams["hom"]
+        entries, uncut = streams["dynamic"]
+        n_evict = sum(e.kind == "evict" for e in entries)
+        if n_evict <= 0:
+            fail("service §7 sjf-bco-dynamic: the journal holds no evict "
+                 "record")
+        label = f"service §7 hom sjf-bco-dynamic sqlite ({n_evict} evicts)"
+        kernels.reset_launch_counts()
+        recover_and_finish(torch, np, svc_mod, workdir, "dynamic", entries,
+                           "sjf-bco-dynamic", jobs, arrivals, uncut,
+                           f"{label} recovery")
+        counted(f"{label} recovery", ("tau",))
+
+    # 4. Batch preemption through run_scenario.
+    expect = {("hom", "incremental"): ("pool",),
+              ("hom", "batched"): ("pool", "tau"),
+              ("het", "incremental"): ("pool", "score"),
+              ("het", "batched"): ("pool", "tau_het")}
+    for (kind, engine), needs in expect.items():
+        spec = rt.Scenario(
+            cluster=rt.ClusterSpec(num_servers=20, seed=1,
+                                   **(HETERO if kind == "het" else {})),
+            workload=rt.WorkloadSpec(seed=1), policy="sjf-bco-dynamic",
+            policy_params=(("engine", engine),), horizon=1200)
+        label = f"sjf-bco-dynamic batch §7 {kind} {engine}"
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = rt.run_scenario(spec, device="cuda")
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        counts = counted(label, needs)
+        t0 = time.perf_counter()
+        host = rt.run_scenario(spec, device="cpu")
+        t_host = time.perf_counter() - t0
+        if not same_drain(np, (card.schedule, card.sim),
+                          (host.schedule, host.sim)):
+            fail(f"{label}: the card's run differs from the CPU's")
+        print(f"{label}: bitwise equal to the CPU run; policy "
+              f"{card.schedule.policy} makespan {card.sim.makespan} avg_jct "
+              f"{card.sim.avg_jct}; card {t_card:.6f} s, cpu {t_host:.6f} s; "
+              f"K1 {counts['tau']} K2 {counts['tau_het']} K3 "
+              f"{counts['pool']} K4 {counts['score']} launches", flush=True)
+
+    # 5. The §6 certificate and trace replay.
+    spec = rt.Scenario(cluster=rt.ClusterSpec(num_servers=20, seed=1),
+                       workload=rt.WorkloadSpec(seed=1), policy="sjf-bco",
+                       horizon=1200)
+    kernels.reset_launch_counts()
+    reports = {}
+    for device in ("cuda", "cpu"):
+        run = rt.run_scenario(spec, device=device)
+        reports[device] = report(spec.cluster.build(), spec.workload.build(),
+                                 run.schedule, run.sim)
+    counted("theory §7 hom sjf-bco", ("pool",))
+    cert = reports["cuda"]
+    if cert != reports["cpu"] or not cert.certified:
+        fail(f"theory: the card's certificate {cert} differs from the "
+             f"CPU's {reports['cpu']} or is not certified")
+    print(f"theory §7 hom sjf-bco: equal on both devices, certified "
+          f"{cert.certified}: {cert}", flush=True)
+    cluster = rt.ClusterSpec(num_servers=4, seed=2).build()
+    outs = {}
+    kernels.reset_launch_counts()
+    for device in ("cuda", "cpu"):
+        svc = svc_mod.SchedulerService(cluster, policy="sjf-bco",
+                                       device=device)
+        records = replay_trace(svc.daemon, str(ROOT / "examples" /
+                                               "sample_trace.csv"))
+        outs[device] = svc.drain()
+    counts = counted("replay_trace", ("tau",))
+    card_out, host_out = outs.values()
+    if not same_drain(np, card_out, host_out):
+        fail("replay_trace: the card daemon's drain differs from the CPU's")
+    print(f"replay_trace examples/sample_trace.csv: {len(records)} jobs, "
+          f"card drain bitwise equal to the CPU's, makespan "
+          f"{card_out[1].makespan}; K1 {counts['tau']} launches", flush=True)
+    print(f"service phase {time.perf_counter() - t_phase:.6f} s wall",
+          flush=True)
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -1564,6 +1909,7 @@ def main() -> None:
     serving_phase(torch, np, kernels, totals, dev)
     xlstm_phase(torch, np, kernels, totals, dev)
     entry_point_phase(torch, np, kernels, totals, dev)
+    service_phase(torch, np, rt, kernels, totals)
     for row in rows:
         row["launches"] = totals[row["name"]]
         if row["launches"] <= 0:

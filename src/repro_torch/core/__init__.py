@@ -4,8 +4,11 @@ DDL jobs (Yu et al., MobiHoc '22), mirroring :mod:`repro.core`.
 Ported so far: the cluster and workload models, trace loading, the
 Eq. (6)-(8) contention model, the unified scheduling API with SJF-BCO,
 the §7 baselines and the adaptive extension, the columnar placement
-engine, the slot simulator and :func:`run_scenario`.  Preemption, theory
-and the online helpers are later slices of the port.
+engine, the slot simulator and :func:`run_scenario`, the preemption
+primitives and policies (:mod:`repro_torch.core.preempt`), the §6 theory
+certificate (:mod:`repro_torch.core.theory`) and the arrival-stream
+helpers (:mod:`repro_torch.core.online`).  The scheduler service over
+them is :mod:`repro_torch.service`.
 """
 from repro_torch.core.api import (PlacementState, ScheduleRequest,
                                   ScheduleResult, SchedulingPolicy,
@@ -24,11 +27,13 @@ from repro_torch.core.contention import (IncrementalEval, IterModel,
                                          reset_eval_counts, scalar_tau_many,
                                          slots_for, stack_model, tau_backend,
                                          tau_bounds, tau_ladder)
+from repro_torch.core.preempt import evict, evictable, replace, resize
 from repro_torch.core.simulator import SimEvent, SimResult, simulate
 from repro_torch.core.sjf_bco import fa_ffp, lbsgf
 from repro_torch.core.scenario import (ArrivalSpec, ClusterSpec,
                                        ContentionStats, RunReport, Scenario,
                                        WorkloadSpec, run_scenario)
+from repro_torch.core.theory import TheoryReport, report
 from repro_torch.core.trace import load_trace, replay_trace
 
 __all__ = [
@@ -52,4 +57,7 @@ __all__ = [
     "SimEvent", "SimResult", "simulate",
     # algorithm subroutines
     "fa_ffp", "lbsgf",
+    # preemption / elasticity primitives
+    "evict", "evictable", "replace", "resize",
+    "TheoryReport", "report",
 ]

@@ -179,7 +179,8 @@ def _load_builtins() -> None:
     if _BUILTINS_LOADED:
         return
     _BUILTINS_LOADED = True
-    from repro_torch.core import baselines, extensions, sjf_bco  # noqa: F401
+    from repro_torch.core import (  # noqa: F401
+        baselines, extensions, preempt, sjf_bco)
 
 
 def register_policy(name: str, *aliases: str
@@ -233,7 +234,7 @@ def register_chooser(name: str, *aliases: str
 
     Every policy with an ``arrivals`` path registers the factory that
     builds its per-arrival chooser, and its own online branch goes through
-    the same factory -- so a long-running consumer (``repro.service``)
+    the same factory -- so a long-running consumer (``repro_torch.service``)
     that pulls the chooser via :func:`get_chooser` and drives it against a
     persistent :class:`PlacementState` makes decision-for-decision the
     same placements as a one-shot :func:`schedule_arrivals` call."""
@@ -396,7 +397,7 @@ class PlacementState:
         self.est_finish: dict[int, float] = {}
         # Per-assignment-entry (segment) bookkeeping.  Non-preemptive
         # policies commit one entry per job and never read these; the
-        # preemption primitives (:mod:`repro.core.preempt`) need the EXACT
+        # preemption primitives (:mod:`repro_torch.core.preempt`) need the EXACT
         # committed floats (est_finish - est_start would not round-trip
         # rho) plus the entry <-> placed-row linkage to undo/truncate a
         # commit.  ``seg_quota`` is each entry's planned iteration share
@@ -422,11 +423,11 @@ class PlacementState:
         self._fin_owned = [True] * cluster.num_servers
         # Optional observer called after every commit with the exact
         # (job, gpus, rho, start) committed -- the write-ahead journal of
-        # repro.service captures placements here so a crash replay can
+        # repro_torch.service captures placements here so a crash replay can
         # re-commit bit-identically (est_finish - est_start would NOT
         # round-trip rho through float subtraction).
         self.commit_hook: "Callable[[Job, np.ndarray, float, float], None] | None" = None
-        # Optional observer called by :func:`repro.core.preempt.evict` with
+        # Optional observer called by :func:`repro_torch.core.preempt.evict` with
         # (job, t_ev, residual_job) after an eviction is applied -- the
         # service daemon journals EVICT/RESIZE records here.
         self.evict_hook: "Callable[[Job, float, Job], None] | None" = None

@@ -15,7 +15,7 @@ time-varying set of concurrently active jobs.  This simulator evaluates it:
 
 In the paper's non-preemptive Eq. (3) setting every job is exactly one
 assignment entry with quota F_j.  Preemptive schedules
-(:mod:`repro.core.preempt`) may list a job id several times -- its
+(:mod:`repro_torch.core.preempt`) may list a job id several times -- its
 checkpointed SEGMENTS, each carrying an iteration quota (the
 ``quotas`` argument, produced by ``ScheduleResult.quotas``); segments of
 one job execute in assignment order (a segment cannot start before its

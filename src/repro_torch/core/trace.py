@@ -96,10 +96,10 @@ def load_trace(path: str) -> tuple[list[Job], np.ndarray]:
 def replay_trace(daemon, path: str, tenant: str = "default") -> list:
     """Admit every trace row into a service daemon at its recorded arrival.
 
-    ``daemon`` is a :class:`repro.service.daemon.Daemon` (or anything with
+    ``daemon`` is a :class:`repro_torch.service.daemon.Daemon` (or anything with
     its ``admit(job, arrival, tenant)`` surface, e.g. a
-    :class:`~repro.service.api.SchedulerService`'s ``.daemon``).  Returns
-    the admitted :class:`~repro.service.state.JobRecord` list in arrival
+    :class:`~repro_torch.service.api.SchedulerService`'s ``.daemon``).  Returns
+    the admitted :class:`~repro_torch.service.state.JobRecord` list in arrival
     order; the caller steps/drains the daemon as usual.
     """
     jobs, arrivals = load_trace(path)

@@ -11,7 +11,10 @@ held ``torch.equal`` to their plain versions (float64, bit for bit); the
 attention kernel K5, the RMSNorm kernel K7 and the SwiGLU kernel K8
 within 2e-5 in float32 and 2e-2 in bfloat16, the mLSTM kernel K6 within
 2e-4 and 3e-2, the tolerances of the reference's kernel tests (fp32 sums
-in another order).
+in another order).  The scheduler service on the card (every decision
+priced by K1/K2) is held bit for bit against the same service on the
+CPU: drains, journals, run_online, recovery of a cut sqlite journal, and
+the module-wide tau switch left unset between steps.
 """
 import numpy as np
 import pytest
@@ -858,3 +861,136 @@ def test_rmsnorm_swiglu_cuda_tensors_never_take_the_plain_path(
         rn.rmsnorm(x.half(), torch.ones(256, device=cuda))
     with pytest.raises(ValueError, match="shape"):
         rn.rmsnorm(x, torch.ones(128, device=cuda))
+
+
+# --------------------------------------------------------------------------
+# The scheduler service on the card: every decision priced by K1/K2.
+# --------------------------------------------------------------------------
+
+SERVICE_POLICIES = ("sjf-bco", "sjf-bco-dynamic", "gadget-elastic",
+                    "wang-ca")
+
+
+def _service_case(hetero, n=24):
+    from repro_torch.core.online import poisson_arrivals
+    cluster = philly_cluster(5, seed=4, **(HETERO if hetero else {}))
+    stream = poisson_arrivals(philly_workload(seed=4)[:n], rate=0.5, seed=4)
+    return cluster, [a.job for a in stream], [a.arrival for a in stream]
+
+
+def _service_drain(cluster, jobs, arrivals, policy, device, **kw):
+    from repro_torch.service import SchedulerService, SubmitRequest
+    svc = SchedulerService(cluster, policy=policy, device=device,
+                           horizon=10**6, **kw)
+    for job, a in zip(jobs, arrivals):
+        svc.submit(SubmitRequest(job, int(a)))
+    return svc, svc.drain()
+
+
+def _service_same(a, b):
+    (sa, ma), (sb, mb) = a, b
+    assert len(sa.assignment) == len(sb.assignment)
+    for (j1, g1), (j2, g2) in zip(sa.assignment, sb.assignment):
+        assert j1 == j2 and np.array_equal(g1, g2)
+    assert (sa.quotas is None) == (sb.quotas is None)
+    if sa.quotas is not None:
+        assert np.array_equal(sa.quotas, sb.quotas)
+    assert np.array_equal(sa.est_start, sb.est_start)
+    assert np.array_equal(sa.est_finish, sb.est_finish)
+    assert np.array_equal(ma.finish, mb.finish)
+    assert (ma.makespan, ma.avg_jct) == (mb.makespan, mb.avg_jct)
+
+
+def _journal_rows(store):
+    return [(e.kind, e.jid, e.to_json()) for e in store.entries()]
+
+
+@pytest.mark.parametrize("hetero", [False, True])
+@pytest.mark.parametrize("policy", SERVICE_POLICIES)
+def test_card_daemon_equals_cpu_daemon(cuda, policy, hetero):
+    from repro_torch.kernels import reset_launch_counts
+    cluster, jobs, arrivals = _service_case(hetero)
+    host, want = _service_drain(cluster, jobs, arrivals, policy, "cpu")
+    reset_launch_counts()
+    card, got = _service_drain(cluster, jobs, arrivals, policy, cuda)
+    torch.cuda.synchronize()
+    kernel = "tau_het" if hetero else "tau"
+    assert LAUNCHES[kernel] > 0
+    assert LAUNCHES["tau" if hetero else "tau_het"] == 0
+    assert card.daemon.state.engine == "batched"
+    _service_same(want, got)
+    assert _journal_rows(card.daemon.store) == _journal_rows(host.daemon.store)
+
+
+@pytest.mark.parametrize("hetero", [False, True])
+def test_card_run_online_equals_cpu(cuda, hetero):
+    from repro_torch.core.online import poisson_arrivals, run_online
+    cluster = philly_cluster(5, seed=4, **(HETERO if hetero else {}))
+    stream = poisson_arrivals(philly_workload(seed=4)[:24], rate=0.5, seed=4)
+    before = LAUNCHES["tau_het" if hetero else "tau"]
+    for policy in SERVICE_POLICIES:
+        a_cpu, s_cpu = run_online(cluster, stream, policy=policy,
+                                  device="cpu")
+        a_card, s_card = run_online(cluster, stream, policy=policy,
+                                    device=cuda)
+        assert len(a_cpu) == len(a_card)
+        for (j1, g1), (j2, g2) in zip(a_cpu, a_card):
+            assert j1 == j2 and np.array_equal(g1, g2)
+        assert np.array_equal(s_cpu.finish, s_card.finish)
+    assert LAUNCHES["tau_het" if hetero else "tau"] > before
+
+
+@pytest.mark.parametrize("policy", ["sjf-bco", "sjf-bco-dynamic"])
+def test_card_recovers_a_truncated_sqlite_journal(cuda, tmp_path, policy):
+    from repro_torch.service import (SchedulerService, SqliteStore,
+                                     SubmitRequest)
+    cluster, jobs, arrivals = _service_case(False, n=30)
+    path = str(tmp_path / "full.db")
+    full, want = _service_drain(cluster, jobs, arrivals, policy, cuda,
+                                store_path=path)
+    entries = full.daemon.store.entries()
+    full.close()
+    cut, cut_cpu = str(tmp_path / "cut.db"), str(tmp_path / "cut_cpu.db")
+    for name in (cut, cut_cpu):
+        store = SqliteStore(name)
+        for e in entries[:len(entries) // 2]:
+            store.append(e.kind, e.jid, e.payload, ts=e.ts)
+        store.close()
+    on_cpu = SchedulerService.recover(None, cut_cpu, policy=policy,
+                                      device="cpu", horizon=10**6)
+    rec = SchedulerService.recover(None, cut, policy=policy, device=cuda,
+                                   horizon=10**6)
+    assert np.array_equal(rec.daemon.state.U, on_cpu.daemon.state.U)
+    assert np.array_equal(rec.daemon.state.R, on_cpu.daemon.state.R)
+    for job, a in list(zip(jobs, arrivals))[len(rec.daemon.jobs):]:
+        rec.submit(SubmitRequest(job, int(a)))
+    got = rec.drain()
+    _service_same(want, got)
+    rec.close()
+    on_cpu.close()
+
+
+def test_card_daemon_leaves_the_tau_switch_unset(cuda):
+    """The tau backend is module-wide: the card daemon sets it for each
+    chooser run and a CPU caller between two steps sees it unset."""
+    from repro_torch.core import contention
+    from repro_torch.service import SchedulerService, SubmitRequest
+    cluster, jobs, arrivals = _service_case(False, n=12)
+    svc = SchedulerService(cluster, device=cuda, horizon=10**6)
+    seen = []
+    chooser = svc.daemon._chooser_for("default")
+
+    def spy(*args):
+        seen.append((contention.TAU_BACKEND, contention.TAU_DEVICE))
+        return chooser(*args)
+
+    svc.daemon._choosers["default"] = spy
+    for job, a in zip(jobs, arrivals):
+        svc.submit(SubmitRequest(job, int(a)))
+    steps = 0
+    while svc.step():
+        steps += 1
+        assert contention.TAU_BACKEND == "numpy"
+        assert contention.TAU_DEVICE is None
+    assert steps > 1 and len(seen) == len(jobs)
+    assert all(b == "kernel" and d.type == "cuda" for b, d in seen)

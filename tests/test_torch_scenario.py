@@ -121,8 +121,10 @@ class TestPolicies:
         _assert_schedules_equal(want, got)
 
     def test_registry(self):
-        assert tc.list_policies() == ["ff", "ls", "rand", "reserved",
-                                      "sjf-bco", "sjf-bco-adaptive"]
+        assert tc.list_policies() == rc.list_policies() == [
+            "ff", "gadget-elastic", "ls", "rand", "reserved", "sjf-bco",
+            "sjf-bco-adaptive", "sjf-bco-dynamic", "wang-ca"]
+        assert tc.list_choosers() == rc.list_choosers()
         with pytest.raises(ValueError, match="columnar backend"):
             tc.get_policy("sjf-bco")(tc.ScheduleRequest(
                 cluster=tc.philly_cluster(2, seed=0),
