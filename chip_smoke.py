@@ -131,6 +131,26 @@ per-launch floor (one in-place add on a one-element tensor):
      ``examples/sample_trace.csv`` into a card daemon.  The counters are
      zeroed before each run; K1 must launch in every homogeneous drain and
      K2 in every heterogeneous one.
+ 10. training -- llama3.2-1b at full width (float32 params, bf16 compute,
+     random weights from a seeded ``torch.Generator``): (a) the
+     ring-all-reduce on a [4, d] float32 buffer of its gradient size, in
+     place, every row ``torch.equal`` to a plain loop of adds in the
+     ring's order written here, within 2e-5 of ``torch.sum`` over the
+     workers, 2(w - 1) steps and ``exchange_bytes_per_worker`` bytes a
+     worker, ms a ring; (b) ``make_rar_train_step`` at w = 4, global batch
+     8, seq 256, 5 steps: each loss finite and every ring row the same
+     bits, s a step and tokens/s, a step split into the workers' fwd+bwd,
+     the ring and AdamW, peak device memory, the device's idle share of
+     one step (torch.profiler), and the ring-averaged gradient of step 0
+     within a relative L2 gap of 1e-2 of the single-program gradient of
+     the concatenated batch; (c) the ``repro_torch.launch.train`` CLI at
+     full width for 3 RAR steps with one checkpoint, reloaded bitwise; (d)
+     ``repro_torch.launch.sched_launch`` (4 GPUs, 2 servers, 3 jobs, 2
+     steps) on the card, its schedule and simulated run bitwise equal to
+     the same run on the CPU, each job's losses and the kernel launches of
+     its scheduling.  No kernel runs in training: the kernels have no
+     backward, and the models train with their kernel branches off, as
+     the reference's do.
 
 float32 matrix products run in full float32 throughout
 (``torch.backends.cuda.matmul.allow_tf32 = False``, set in ``main``): the
@@ -1220,11 +1240,13 @@ def serving_phase(torch, np, kernels, totals: dict, dev) -> None:
     print(f"serving launches {counts}", flush=True)
 
 
-def split_seconds(torch, module, names) -> dict:
+def split_seconds(torch, module, names, spent: dict | None = None) -> dict:
     """Wrap ``module``'s functions ``names`` in place so that each call
     adds its host wall seconds, ending in a synchronize, to the returned
-    dict (the callers look them up on ``module`` at call time)."""
-    spent = dict.fromkeys(names, 0.0)
+    dict (``spent`` when given; the callers look the functions up on
+    ``module`` at call time)."""
+    spent = {} if spent is None else spent
+    spent.update(dict.fromkeys(names, 0.0))
     for name in names:
         def timed(*args, _fn=getattr(module, name), _name=name, **kw):
             torch.cuda.synchronize()
@@ -1854,6 +1876,235 @@ def service_phase(torch, np, rt, kernels, totals: dict) -> None:
           flush=True)
 
 
+# Phase 10 at llama3.2-1b's full width: ring width, global batch, seq, steps.
+TRAIN = dict(w=4, batch=8, seq=256, steps=5)
+# The ring-averaged gradient against the single-program gradient of the
+# concatenated batch, relative L2 gap, bf16 compute: 3.2e-3 to 3.8e-3 on
+# the CPU at reduced width (tests/test_torch_train.py holds 1e-2 there).
+GRAD_GAP_TOL = 1e-2
+
+
+def ring_phase(torch, rar, d: int, w: int, dev) -> None:
+    """Phase 10a: the ring on a [w, d] float32 buffer on the card, bitwise
+    against a plain loop of adds in the ring's order, within 2e-5 of
+    ``torch.sum`` over the workers, its steps and bytes against §3."""
+    if d % w:
+        fail(f"ring: d = {d} is not a multiple of w = {w}")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn((w, d), generator=gen, device=dev)
+    # The reference's schedule, written out: the partial of chunk c starts
+    # at worker c - 1 and gains workers c - 2, c - 3, ... and c last.
+    m = d // w
+    plain = torch.empty(d, device=dev)
+    for c in range(w):
+        cols = slice(c * m, (c + 1) * m)
+        acc = x[(c - 1) % w, cols].clone()
+        for k in range(2, w + 1):
+            acc += x[(c - k) % w, cols]
+        plain[cols] = acc
+    total = x.sum(dim=0)
+    rar.reset_ring_counts()
+    rar.ring_all_reduce(x, out=x)
+    torch.cuda.synchronize()
+    counts = rar.ring_counts()
+    if not all(torch.equal(x[i], plain) for i in range(w)):
+        fail("ring: a row differs from the plain ring-order loop")
+    gap = float((x[0] - total).abs().max())
+    if not gap <= 2e-5:
+        fail(f"ring: max abs diff {gap} from torch.sum exceeds 2e-5")
+    want = rar.exchange_bytes_per_worker(4 * d, w)
+    if counts != {"steps": 2 * (w - 1), "bytes": want}:
+        fail(f"ring: counted {counts}, expected {2 * (w - 1)} steps and "
+             f"{want} bytes a worker")
+    del plain, total
+    ms = time_ms(torch, lambda: rar.ring_all_reduce(x, out=x), reps=5)
+    print(f"ring w={w} d={d} float32 on the card: every row bitwise equal "
+          f"to the plain ring-order loop; max abs diff from torch.sum {gap} "
+          f"(limit 2e-5); {counts['steps']} steps, {counts['bytes']} bytes "
+          f"sent a worker (= 2 d (w-1)/w); {ms:.6f} ms a ring, "
+          f"{w * want / ms / 1e6:.3f} GB/s of ring traffic as on-card "
+          f"copies (not link bandwidth)", flush=True)
+    del x
+    torch.cuda.empty_cache()
+
+
+def timed_calls(torch, pairs):
+    """Wrap each ``(module, name)`` with :func:`split_seconds`; returns the
+    seconds dict and a function that puts the originals back."""
+    spent, saved = {}, []
+    for module, name in pairs:
+        saved.append((module, name, getattr(module, name)))
+        split_seconds(torch, module, [name], spent)
+
+    def restore():
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+    return spent, restore
+
+
+def training_phase(torch, np, kernels, totals: dict, dev) -> None:
+    """Phase 10: ring-all-reduce training at llama3.2-1b's full width, the
+    train CLI with a checkpoint reloaded bitwise, and ``sched_launch``'s
+    jobs on the card; the kernel counters are zeroed just before the
+    launcher runs and read just after."""
+    import tempfile
+
+    from repro_torch import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.dist import rar, steps
+    from repro_torch.launch import sched_launch, train
+    from repro_torch.models import build_model
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    w, B, S, n_steps = (TRAIN[k] for k in ("w", "batch", "seq", "steps"))
+    cfg = get_config("llama3.2-1b")
+    model = build_model(cfg, max_seq=S, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0)
+    d = sum(p.numel() for p in leaves(params))
+    gb = 4 * d / 1e9
+    print(f"training: llama3.2-1b full width, {d} float32 params, "
+          f"{cfg.compute_dtype} compute, ring w={w}, global batch {B}, seq "
+          f"{S}; reckoned memory: params {gb:.1f} GB, AdamW moments "
+          f"{2 * gb:.1f} GB, the [w, d] gradient buffer {w * gb:.1f} GB "
+          f"(the all-gather writes back into it)", flush=True)
+    ring_phase(torch, rar, d, w, dev)
+
+    # 10b: RAR training steps, each split into fwd+bwd, ring and AdamW.
+    ocfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=min(50, n_steps // 10 + 1),
+                             total_steps=n_steps)
+    opt = adamw.init(ocfg, params)
+    step_fn = steps.make_rar_train_step(model, ocfg,
+                                        steps.RingMesh(range(w), dev))
+    shape = InputShape("train", S, B, "train")
+    batches = [make_batch(cfg, shape, i, DataConfig(), device=dev)
+               for i in range(n_steps + 1)]
+    ring_grad = {}
+    ring = steps.ring_all_reduce
+
+    def capture(buf, **kw):
+        out = ring(buf, **kw)
+        ring_grad["g"] = out[0] / w
+        return out
+
+    steps.ring_all_reduce = capture
+    params0 = params
+    params, opt, metrics = step_fn(params, opt, batches[0])
+    steps.ring_all_reduce = ring
+    single, _ = steps._grads_and_loss(model, ocfg, params0, batches[0])
+    single = torch.cat([g.reshape(-1) for g in leaves(single)])
+    gap = float((ring_grad.pop("g") - single).norm() / single.norm())
+    del single, params0
+    if not gap <= GRAD_GAP_TOL:
+        fail(f"training: ring-averaged gradient {gap} from the single-program "
+             f"gradient (relative L2), limit {GRAD_GAP_TOL}")
+    losses = [float(metrics["loss"])]
+    spent, restore = timed_calls(torch, [(steps, "_grads_and_loss"),
+                                         (steps, "ring_all_reduce"),
+                                         (steps.adamw, "apply")])
+    walls = []
+    for i in range(1, n_steps):
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batches[i])
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if metrics["replicated"] is not True:
+            fail(f"training step {i}: the ring's rows differ")
+    restore()
+    if not all(np.isfinite(losses)):
+        fail(f"training: non-finite loss {losses}")
+    per_step = sum(walls) / len(walls)
+    split = {k: v / len(walls) for k, v in spent.items()}
+    split["other"] = per_step - sum(split.values())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    holder = {}
+    step_wall = wall_s(torch, lambda: holder.update(
+        out=step_fn(params, opt, batches[n_steps])))
+    params, opt, metrics = holder.pop("out")
+    busy, rows = device_busy(torch, lambda: holder.update(
+        out=step_fn(params, opt, batches[n_steps])))
+    holder.clear()
+    print(f"training losses of steps 0-{n_steps - 1}: {losses}; "
+          f"ring-averaged vs single-program gradient of step 0: relative L2 "
+          f"gap {gap} (limit {GRAD_GAP_TOL})")
+    print(f"training: {per_step:.6f} s a step (steps 1-{n_steps - 1}), "
+          f"{B * S / per_step:.3f} tokens/s; a step's split: fwd+bwd of "
+          f"{w} workers {split['_grads_and_loss']:.6f} s, ring "
+          f"{split['ring_all_reduce']:.6f} s, AdamW {split['apply']:.6f} s, "
+          f"other (flatten, divide, row check) {split['other']:.6f} s; peak "
+          f"device memory {peak:.3f} GiB")
+    print(f"device profile of one training step: busy {busy:.6f} s of "
+          f"{step_wall:.6f} s wall, idle share {1.0 - busy / step_wall:.6f}")
+    for us, count, key in rows[:6]:
+        print(f"  device {us / 1e3:.3f} ms in {count} x {key[:70]}")
+    del params, opt, metrics, batches, step_fn
+    torch.cuda.empty_cache()
+
+    # 10c: the train CLI at full width, a checkpoint reloaded bitwise.
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        res = train.main(["--mode", "rar", "--devices", str(w), "--steps",
+                          "3", "--batch", str(B), "--seq", str(S),
+                          "--ckpt-every", "2", "--ckpt-dir", tmp,
+                          "--log-every", "1", "--device", "cuda"])
+        t_cli = time.perf_counter() - t0
+        if not all(np.isfinite(res["losses"])) or len(res["checkpoints"]) != 1:
+            fail(f"train CLI: losses {res['losses']}, checkpoints "
+                 f"{res['checkpoints']}")
+        path = res["checkpoints"][0]
+        size = Path(path).stat().st_size
+        t0 = time.perf_counter()
+        lp, lo, step = ckpt.load(path, params_like=res["params"],
+                                 opt_like=res["opt"])
+        t_load = time.perf_counter() - t0
+        if step != 2 or not all(
+                torch.equal(a, b) and a.device == b.device
+                for a, b in zip(leaves(lp) + leaves(lo),
+                                leaves(res["params"]) + leaves(res["opt"]))):
+            fail("train CLI: the reloaded checkpoint differs")
+        del lp, lo, res
+    torch.cuda.empty_cache()
+    print(f"train CLI full width, 3 RAR steps: {t_cli:.3f} s with one "
+          f"checkpoint of {size} bytes; reloaded bitwise in {t_load:.3f} s",
+          flush=True)
+
+    # 10d: sched_launch's jobs on the card; the schedule against the CPU's.
+    argv = ["--devices", "4", "--servers", "2", "--jobs", "3", "--steps", "2"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = sched_launch.main(argv + ["--device", "cuda"])
+    t_card = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    host = sched_launch.main(argv + ["--device", "cpu"])
+    placed = [[(int(j), [int(g) for g in ids])
+               for j, ids in out["schedule"].assignment]
+              for out in (card, host)]
+    same = (placed[0] == placed[1]
+            and all(np.array_equal(getattr(card["sim"], f),
+                                   getattr(host["sim"], f))
+                    for f in ("start", "finish", "makespan", "avg_jct")))
+    if not same:
+        fail("sched_launch: the card's schedule differs from the CPU's")
+    if not all(np.isfinite(v).all() for v in card["losses"].values()):
+        fail(f"sched_launch: non-finite losses {card['losses']}")
+    for name, n in counts.items():
+        totals[name] += n
+    print(f"sched_launch on the card: schedule {placed[0]} "
+          f"bitwise equal to the CPU's, simulated makespan "
+          f"{card['sim'].makespan}; job losses "
+          f"{ {j: v for j, v in card['losses'].items()} }; {t_card:.3f} s; "
+          f"kernel launches {counts}", flush=True)
+    print(f"training phase {time.perf_counter() - t_phase:.6f} s wall",
+          flush=True)
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -1910,6 +2161,7 @@ def main() -> None:
     xlstm_phase(torch, np, kernels, totals, dev)
     entry_point_phase(torch, np, kernels, totals, dev)
     service_phase(torch, np, rt, kernels, totals)
+    training_phase(torch, np, kernels, totals, dev)
     for row in rows:
         row["launches"] = totals[row["name"]]
         if row["launches"] <= 0:

@@ -5,7 +5,8 @@ is the cluster and the job list.  The reference emits both as plain data
 -- ``Cluster.to_payload()`` (a dict of numbers, tuples and strings) and
 ``dataclasses.asdict(job)`` -- so the port rebuilds its own value types
 from those without importing the reference.  Model weights come across
-as nested dicts of NumPy arrays (``params_from_reference``).
+as nested dicts of NumPy arrays (``params_from_reference``), and the
+AdamW state with them (``opt_from_reference``).
 """
 from __future__ import annotations
 
@@ -17,8 +18,9 @@ from repro_torch.core.cluster import Cluster
 from repro_torch.core.jobs import Job
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of
+from repro_torch.tree import flatten_with_paths, unflatten
 
-__all__ = ["from_reference", "params_from_reference"]
+__all__ = ["from_reference", "opt_from_reference", "params_from_reference"]
 
 
 def from_reference(cluster_payload: dict, job_records: list[dict]
@@ -58,3 +60,37 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device="cuda"
         return torch.tensor(a.astype(np.float32), device=dev).to(to)
 
     return carry(tree, "")
+
+
+def _exact_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """``a`` as a tensor of the same dtype and bits: float32 and int32 as
+    they are, an ``ml_dtypes`` bfloat16 array through its 16-bit pattern."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)
+                                ).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def opt_from_reference(state: dict, params: dict, device="cuda") -> dict:
+    """The port's AdamW state from the reference's (``jax.tree.map(
+    np.asarray, opt)``: ``m``, ``v`` and ``step``), bit for bit and in the
+    reference's dtypes (float32 or bfloat16 moments, int32 step), on
+    ``device``, with the structure of the port's ``params``.  Raises on a
+    missing leaf or a moment whose shape is not its param's."""
+    dev = resolve_device(device)
+
+    def carry(tree, name):
+        out = []
+        for path, p in flatten_with_paths(params):
+            node = tree
+            for k in path:
+                node = node[k]
+            a = np.asarray(node)
+            if a.shape != tuple(p.shape):
+                raise ValueError(f"opt/{name}/{'/'.join(map(str, path))}: "
+                                 f"shape {a.shape} != {tuple(p.shape)}")
+            out.append(_exact_tensor(a, dev))
+        return unflatten(params, out)
+
+    return {"m": carry(state["m"], "m"), "v": carry(state["v"], "v"),
+            "step": _exact_tensor(np.asarray(state["step"]), dev)}

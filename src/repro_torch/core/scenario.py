@@ -31,7 +31,7 @@ from repro_torch.core.simulator import SimResult, simulate
 from repro_torch.core.trace import load_trace
 
 __all__ = ["ClusterSpec", "WorkloadSpec", "ArrivalSpec", "Scenario",
-           "ContentionStats", "RunReport", "run_scenario"]
+           "ContentionStats", "RunReport", "run_scenario", "schedule_on"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,21 +234,18 @@ def build_request(scenario: Scenario) -> ScheduleRequest:
                            params=dict(scenario.policy_params))
 
 
-def run_scenario(scenario: Scenario, sim_horizon: int = 10**7,
-                 device="cuda") -> RunReport:
-    """Schedule and simulate one scenario: the Fig. 3 loop end-to-end.
-
-    ``device`` (resolved by :func:`repro_torch.resolve_device`, which
-    raises when CUDA is asked for and absent) says where the scheduler's
-    array work runs.  On a CUDA device the request's unset params default
-    to ``placement="columnar"`` with ``columnar_backend="kernel"`` and the
+def schedule_on(request: ScheduleRequest, policy: str,
+                device="cuda") -> ScheduleResult:
+    """``get_policy(policy)(request)`` with the scheduler's array work on
+    ``device`` (resolved by :func:`repro_torch.resolve_device`).  On a
+    CUDA device the request's unset params default to
+    ``placement="columnar"`` with ``columnar_backend="kernel"`` and the
     stack-model tau backend is ``"kernel"``, so the pool, score and tau
     kernels carry the step math; on the CPU the reference's defaults hold
     (scalar placement, NumPy throughout).  Every placement and backend is
     bit-identical in float64, so the device changes where the work runs,
-    not the report.  The simulator is host NumPy on both."""
+    not the schedule."""
     dev = resolve_device(device)
-    request = build_request(scenario)
     params = dict(request.params)
     params.setdefault("device", dev)
     on_card = dev.type == "cuda"
@@ -258,7 +255,19 @@ def run_scenario(scenario: Scenario, sim_horizon: int = 10**7,
     request = dataclasses.replace(request, params=params)
     with (tau_backend("kernel", dev) if on_card
           else contextlib.nullcontext()):
-        schedule = get_policy(scenario.policy)(request)
+        return get_policy(policy)(request)
+
+
+def run_scenario(scenario: Scenario, sim_horizon: int = 10**7,
+                 device="cuda") -> RunReport:
+    """Schedule and simulate one scenario: the Fig. 3 loop end-to-end.
+
+    ``device`` says where the scheduler's array work runs
+    (:func:`schedule_on`; it raises when CUDA is asked for and absent).
+    The device changes where the work runs, not the report.  The
+    simulator is host NumPy on both."""
+    request = build_request(scenario)
+    schedule = schedule_on(request, scenario.policy, device)
     sim = simulate(request.cluster, request.jobs, schedule.assignment,
                    horizon=sim_horizon, arrivals=request.arrivals,
                    quotas=schedule.quotas)

@@ -4,7 +4,9 @@ Each kernel sits behind a wrapper that checks its tensors (device,
 dtype, shape, layout) and then either launches the
 kernel (CUDA tensors) or runs the plain PyTorch version that sits beside
 it in the same module (CPU tensors).  There is no fallback: a CUDA tensor
-whose kernel fails to build or launch raises.
+whose kernel fails to build or launch raises.  No kernel has a backward,
+so a CUDA call that autograd would record raises too
+(``_build.refuse_autograd``); the plain versions stay differentiable.
 
   * :mod:`repro_torch.kernels.tau` -- ``tau`` / ``tau_het``: the Eq. (6)-(8)
     candidate-stack reduction behind ``contention.stack_model``;

@@ -134,3 +134,20 @@ def check(t, name: str, dtype: torch.dtype, shape: tuple, device) -> None:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def refuse_autograd(kernel: str, *tensors) -> None:
+    """Raise when autograd would record a call of ``kernel``: grad mode is
+    on and one of ``tensors`` requires grad.
+
+    The CUDA kernels have no backward (nor have the reference's Pallas
+    kernels), so their output would carry no ``grad_fn`` and a training
+    step would run on silently wrong gradients.  The plain PyTorch
+    versions, which the wrappers run on CPU tensors, are differentiable
+    and never reach this check."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward; call it under "
+            "torch.no_grad() or on tensors that do not require grad (the "
+            "models train with use_flash_kernel=False)")

@@ -128,6 +128,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, kv_len=kv_len)
+    _build.refuse_autograd("flash_attention", q, k, v)
     B, H, Sq, hd = q.shape
     K, Skv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)          # same strides as q (dense layouts)

@@ -132,6 +132,7 @@ def mlstm_parallel(q, k, v, F, i_pre, *, out=None):
     if q.device.type == "cpu":
         y = mlstm_parallel_plain(q, k, v, F, i_pre)
         return y if out is None else out.copy_(y)
+    _build.refuse_autograd("mlstm", q, k, v, F, i_pre, out)
     if out is None:
         out = torch.empty_like(q)
     if q.dim() == 3:

@@ -63,6 +63,7 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     _check(x, scale)
     if x.device.type == "cpu":
         return rmsnorm_plain(x, scale, eps)
+    _build.refuse_autograd("rmsnorm", x, scale)
     rows, d = x.shape
     y = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     if rows and d:

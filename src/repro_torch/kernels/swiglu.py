@@ -97,6 +97,7 @@ def swiglu(x, w_gate, w_up):
     _check(x, w_gate, w_up)
     if x.device.type == "cpu":
         return swiglu_plain(x, w_gate, w_up)
+    _build.refuse_autograd("swiglu", x, w_gate, w_up)
     M, K = x.shape
     N = w_gate.shape[1]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)

@@ -20,8 +20,9 @@ The port of ``repro/models/layers.py``, function for function:
 One card has no mesh, so the reference's ``shard_hint`` is the identity
 and is left out.  Windows are Python ints here (the port runs its layer
 stack as a Python loop), so the K5 branch of ``attention`` is live for
-every layer.  Cross-attention (whisper) and ``bf16_grad_barrier`` wait
-for the audio and training slices.
+every layer.  ``bf16_grad_barrier`` is the reference's identity whose
+backward casts the cotangent to bfloat16 (no model calls it, as in the
+reference).  Cross-attention (whisper) waits for the audio family.
 """
 from __future__ import annotations
 
@@ -33,6 +34,30 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
+
+
+class _BF16GradBarrier(torch.autograd.Function):
+    """Identity forward; casts the cotangent to bf16 on the way back."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16)
+
+
+def bf16_grad_barrier(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; casts the cotangent to bf16 on the way back.
+
+    Placed at block boundaries it pins the backward residual stream to
+    bf16 instead of the fp32 that loss-side upcasts otherwise propagate
+    (the reference's ``jax.custom_vjp`` of the same name).  PyTorch's
+    autograd hands a leaf its gradient in the leaf's own dtype, so below a
+    float32 input the cotangent carries bf16 values in float32 storage,
+    where the reference's stays a bf16 array."""
+    return _BF16GradBarrier.apply(x)
 
 
 def dtype_of(name: str) -> torch.dtype:

@@ -113,7 +113,9 @@ def run_stack_decode(cfg: ModelConfig, stacked, x, q_pos, windows,
 
 def _embed_in(params, cfg, tokens):
     cd = dtype_of(cfg.compute_dtype)
-    x = params["embed"][tokens].to(cd)
+    # F.embedding, not indexing: its backward sums each row's gradients in
+    # a fixed order (indexing's accumulating backward does not on the CPU)
+    x = F.embedding(tokens, params["embed"]).to(cd)
     if cfg.name.startswith("gemma2"):                   # gemma2 embeds scaled
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32
                              ).to(cd)

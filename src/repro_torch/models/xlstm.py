@@ -16,6 +16,7 @@ Prefill runs the mLSTM parallel form, through the K6 kernel when
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of, softmax_cross_entropy
@@ -46,7 +47,9 @@ def build_xlstm(cfg: ModelConfig, max_seq: int, device: torch.device):
 
     def _forward(params, batch):
         cd = dtype_of(cfg.compute_dtype)
-        x = params["embed"][batch["tokens"]].to(cd)
+        # F.embedding: a backward that sums in a fixed order (see
+        # transformer._embed_in)
+        x = F.embedding(batch["tokens"], params["embed"]).to(cd)
         for g in range(G):
             mp = _layer(params["mlstm"], g)
             for j in range(n_m):

@@ -994,3 +994,142 @@ def test_card_daemon_leaves_the_tau_switch_unset(cuda):
         assert contention.TAU_DEVICE is None
     assert steps > 1 and len(seen) == len(jobs)
     assert all(b == "kernel" and d.type == "cuda" for b, d in seen)
+
+
+# --------------------------------------------------------------------------
+# The CUDA kernels refuse autograd: none has a backward.
+# --------------------------------------------------------------------------
+
+
+def _tracked(t):
+    return t.detach().requires_grad_(True)
+
+
+def test_flash_kernel_refuses_autograd(cuda):
+    q, k, v = _qkv(cuda, torch.float32, 1, 2, 1, 16, 16, 32, 0)
+    before = LAUNCHES["flash_attention"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(_tracked(q), k, v)
+    with torch.no_grad():
+        fa.flash_attention(_tracked(q), k, v)
+    assert LAUNCHES["flash_attention"] == before + 1
+
+
+def test_mlstm_kernel_refuses_autograd(cuda):
+    q, k, v, F, i_pre = _mlstm_inputs(cuda, torch.float32, 2, 16, 64, 0)
+    before = LAUNCHES["mlstm"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        ml.mlstm_parallel(q, k, _tracked(v), F, i_pre)
+    with torch.no_grad():
+        ml.mlstm_parallel(q, k, _tracked(v), F, i_pre)
+    assert LAUNCHES["mlstm"] == before + 1
+
+
+def test_rmsnorm_kernel_refuses_autograd(cuda):
+    x = torch.randn(8, 128, device=cuda)
+    scale = torch.ones(128, device=cuda)
+    before = LAUNCHES["rmsnorm"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        rn.rmsnorm(x, _tracked(scale))
+    with torch.no_grad():
+        rn.rmsnorm(_tracked(x), scale)
+    assert LAUNCHES["rmsnorm"] == before + 1
+
+
+def test_swiglu_kernel_refuses_autograd(cuda):
+    x = torch.randn(64, 128, device=cuda, dtype=torch.bfloat16)
+    w = torch.randn(128, 64, device=cuda, dtype=torch.bfloat16)
+    before = LAUNCHES["swiglu"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        sg.swiglu(_tracked(x), w, w)
+    with torch.no_grad():
+        sg.swiglu(x, _tracked(w), w)
+    assert LAUNCHES["swiglu"] == before + 1
+
+
+# --------------------------------------------------------------------------
+# Training on the card: the ring, the RAR step and checkpoints against the
+# same code on the CPU.
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w,n", [(2, 7), (3, 100), (4, 4096), (8, 1001)])
+def test_card_ring_equals_cpu_ring(cuda, w, n, dtype):
+    from repro_torch.dist import rar
+    x = torch.tensor(np.random.default_rng(w * n).standard_normal((w, n)),
+                     dtype=dtype)
+    want = rar.ring_all_reduce(x)
+    rar.reset_ring_counts()
+    got = rar.ring_all_reduce(x.to(cuda))
+    assert rar.ring_counts()["steps"] == 2 * (w - 1)
+    assert torch.equal(got.cpu(), want)
+    buf = x.to(cuda)
+    assert rar.ring_all_reduce(buf, out=buf) is buf
+    assert torch.equal(buf.cpu(), want)
+
+
+def _reduced_llama(device):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    return build_model(get_config("llama3.2-1b").reduced(), 64,
+                       device=device)
+
+
+def _to(tree, device):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def test_card_rar_step_equals_cpu(cuda):
+    """Three steps on the CPU, then one RAR step (w = 4) from that state
+    on both devices: loss 1e-3 and params 2e-4 (the CPU tests' bounds
+    against the reference), every ring row the same bits."""
+    from repro_torch.dist import steps
+    from repro_torch.dist.steps import RingMesh, make_rar_train_step
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+    cpu_model, card_model = _reduced_llama("cpu"), _reduced_llama(cuda)
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    params = cpu_model.init(0)
+    opt = adamw.init(ocfg, params)
+    rng = np.random.default_rng(8)
+    batch = lambda: {"tokens": torch.tensor(  # noqa: E731
+        rng.integers(0, 512, (8, 32)), dtype=torch.int32)}
+    cpu_step = make_rar_train_step(cpu_model, ocfg, RingMesh(range(4), "cpu"))
+    for _ in range(3):
+        params, opt, _ = cpu_step(params, opt, batch())
+    b = batch()
+    want = cpu_step(params, opt, b)
+    got = make_rar_train_step(card_model, ocfg, RingMesh(range(4), cuda))(
+        _to(params, cuda), _to(opt, cuda), _to(b, cuda))
+    assert got[2]["replicated"] is True
+    assert abs(float(got[2]["loss"]) - float(want[2]["loss"])) <= 1e-3
+    assert max(float((a.cpu() - c).abs().max())
+               for a, c in zip(leaves(got[0]), leaves(want[0]))) <= 2e-4
+    assert all(t.device.type == cuda.type
+               for t in leaves(got[0]) + leaves(got[1]))
+    assert steps.RING_AXIS == "data"
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_card_checkpoint_round_trip(cuda, tmp_path, moments):
+    from repro_torch import ckpt
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+    model = _reduced_llama(cuda)
+    params = model.init(0)
+    ocfg = adamw.AdamWConfig(moment_dtype=moments)
+    opt = adamw.init(ocfg, params)
+    opt["m"] = _to(opt["m"], cuda)
+    for t in leaves(opt["m"]):
+        t.normal_()
+    path = str(tmp_path / "card.npz")
+    ckpt.save(path, params=params, opt_state=opt, step=4)
+    like = _to(params, cuda)
+    got, gopt, step = ckpt.load(path, params_like=like,
+                                opt_like=adamw.init(ocfg, like))
+    assert step == 4
+    for a, b in zip(leaves(got) + leaves(gopt), leaves(params) + leaves(opt)):
+        assert a.device.type == cuda.type and a.dtype == b.dtype
+        assert torch.equal(a, b)
