@@ -146,11 +146,43 @@ per-launch floor (one in-place add on a one-element tensor):
      the concatenated batch; (c) the ``repro_torch.launch.train`` CLI at
      full width for 3 RAR steps with one checkpoint, reloaded bitwise; (d)
      ``repro_torch.launch.sched_launch`` (4 GPUs, 2 servers, 3 jobs, 2
-     steps) on the card, its schedule and simulated run bitwise equal to
-     the same run on the CPU, each job's losses and the kernel launches of
-     its scheduling.  No kernel runs in training: the kernels have no
-     backward, and the models train with their kernel branches off, as
-     the reference's do.
+     steps, then at its defaults: 8 GPUs, 2 servers, 6 jobs, 4 steps, so
+     every family of its pool trains, reduced) on the card, its schedule
+     and simulated run bitwise equal to the same run on the CPU, each
+     job's losses finite and the kernel launches of its scheduling.  No
+     kernel runs in training: the kernels have no backward, and the
+     models train with their kernel branches off, as the reference's do.
+ 11. families -- from an empty allocator (its bytes printed), K5 first at
+     the three new serving shapes in bf16 (deepseek-moe-16b (4, 16, 16,
+     1024, 128), hymba-1.5b (4, 25, 5, 1024, 64) with its 1024 window,
+     whisper-tiny's encoder (2, 6, 6, 1500, 64) non-causal) within 2e-2
+     of its plain version, timed beside it and
+     ``F.scaled_dot_product_attention``, with its bound; then three
+     models at full width and depth, random weights from a seeded
+     ``torch.Generator``, K5 on.  (a) deepseek-moe-16b (16.4e9 float32
+     params, 61 GiB): a float32 prefill (B = 2, S = 256) in which every
+     block also runs with K5 off on its own inputs, within 2e-4 over the
+     tokens both runs route to the same experts and keep (the routed-
+     differently share of (token, MoE layer) pairs at most 1e-3); 16
+     stepped decode positions against a no-drop prefill (capacity factor
+     = n_experts: a dropping prefill and a 2-token decode keep different
+     tokens) within 2e-2 over the positions routed alike; the whole
+     prefill's K5 on vs off difference printed; a bf16 prefill (B = 4, S
+     = 1024) timed with K5 on and off, both distances to a float32 K5-off
+     prefill printed (routing flips dominate both), ``moe_apply``'s share
+     of the wall and the device's busy share; its params freed before the
+     serve CLI builds its own.  (b) hymba-1.5b: float32 prefill (B = 2, S
+     = 2048, so the 1024 windows bite) K5 on vs off (2e-4) and 16 stepped
+     decode positions (Mamba's recurrence against the scan, 2e-2); bf16
+     prefill (B = 4, S = 1024) timed, K5 on within 1.5x K5 off of a
+     float32 prefill, its attention / Mamba split and busy share.  (c)
+     whisper-tiny built with max_seq 448: float32 frames [2, 1500, 384]
+     and decoder S = 256, encode + prefill K5 on vs off (2e-4), decode
+     with the encoder output in the cache vs prefill (2e-2); bf16 timed
+     with the 1.5x gate.  Each model's serve CLI at its defaults (whisper
+     with seeded frames), its peak device memory; K5 must launch exactly
+     28, 32 and 4 non-causal + 4 causal times a prefill (never for
+     cross-attention; 4 per whisper encoder run alone).
 
 float32 matrix products run in full float32 throughout
 (``torch.backends.cuda.matmul.allow_tf32 = False``, set in ``main``): the
@@ -2075,33 +2107,590 @@ def training_phase(torch, np, kernels, totals: dict, dev) -> None:
           f"checkpoint of {size} bytes; reloaded bitwise in {t_load:.3f} s",
           flush=True)
 
-    # 10d: sched_launch's jobs on the card; the schedule against the CPU's.
-    argv = ["--devices", "4", "--servers", "2", "--jobs", "3", "--steps", "2"]
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    card = sched_launch.main(argv + ["--device", "cuda"])
-    t_card = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    host = sched_launch.main(argv + ["--device", "cpu"])
-    placed = [[(int(j), [int(g) for g in ids])
-               for j, ids in out["schedule"].assignment]
-              for out in (card, host)]
-    same = (placed[0] == placed[1]
-            and all(np.array_equal(getattr(card["sim"], f),
-                                   getattr(host["sim"], f))
-                    for f in ("start", "finish", "makespan", "avg_jct")))
-    if not same:
-        fail("sched_launch: the card's schedule differs from the CPU's")
-    if not all(np.isfinite(v).all() for v in card["losses"].values()):
-        fail(f"sched_launch: non-finite losses {card['losses']}")
-    for name, n in counts.items():
-        totals[name] += n
-    print(f"sched_launch on the card: schedule {placed[0]} "
-          f"bitwise equal to the CPU's, simulated makespan "
-          f"{card['sim'].makespan}; job losses "
-          f"{ {j: v for j, v in card['losses'].items()} }; {t_card:.3f} s; "
-          f"kernel launches {counts}", flush=True)
+    # 10d: sched_launch's jobs on the card; the schedule against the CPU's:
+    # 3 jobs, then the launcher's defaults (8 GPUs, 2 servers, 6 jobs, 4
+    # steps: every family of its pool trains, reduced).
+    for argv in (["--devices", "4", "--servers", "2", "--jobs", "3",
+                  "--steps", "2"], []):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = sched_launch.main(argv + ["--device", "cuda"])
+        t_card = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        host = sched_launch.main(argv + ["--device", "cpu"])
+        placed = [[(int(j), [int(g) for g in ids])
+                   for j, ids in out["schedule"].assignment]
+                  for out in (card, host)]
+        same = (placed[0] == placed[1]
+                and all(np.array_equal(getattr(card["sim"], f),
+                                       getattr(host["sim"], f))
+                        for f in ("start", "finish", "makespan", "avg_jct")))
+        label = " ".join(argv) or "at its defaults"
+        if not same:
+            fail(f"sched_launch {label}: the card's schedule differs from "
+                 "the CPU's")
+        if not all(np.isfinite(v).all() for v in card["losses"].values()):
+            fail(f"sched_launch {label}: non-finite losses {card['losses']}")
+        for name, n in counts.items():
+            totals[name] += n
+        print(f"sched_launch {label} on the card: schedule {placed[0]} "
+              f"bitwise equal to the CPU's, simulated makespan "
+              f"{card['sim'].makespan}; job losses "
+              f"{ {j: v for j, v in card['losses'].items()} }; {t_card:.3f} "
+              f"s; kernel launches {counts}", flush=True)
     print(f"training phase {time.perf_counter() - t_phase:.6f} s wall",
+          flush=True)
+
+
+# Phase 11: the moe, hybrid and audio families at full width.  K5 at each
+# family's bf16 serving shape: batch, q heads, kv heads, seq, hd, causal,
+# window.
+FAMILY_ATTN = {
+    "deepseek-moe-16b": (4, 16, 16, 1024, 128, True, 0),
+    "hymba-1.5b": (4, 25, 5, 1024, 64, True, 1024),
+    "whisper-tiny encoder": (2, 6, 6, 1500, 64, False, 0),
+}
+
+
+def attention_pairs(S: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs a mask keeps over S positions."""
+    if not causal:
+        return S * S
+    return sum(min(q + 1, window) if window else q + 1 for q in range(S))
+
+
+def family_attention_timing(torch, np, dev) -> None:
+    """K5 at the three new serving shapes in bf16, in the model layout:
+    against its plain version (2e-2), timed beside it and
+    ``F.scaled_dot_product_attention`` (the yardstick only), with its
+    bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    for label, (B, H, K, S, hd, causal, window) in FAMILY_ATTN.items():
+        rng = np.random.default_rng(S + H)
+        q, k, v = (torch.tensor(rng.standard_normal((B, S, n, hd)),
+                                dtype=torch.bfloat16, device=dev)
+                   .transpose(1, 2) for n in (H, K, K))
+        kw = dict(causal=causal, window=window)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), rtol=2e-2,
+                              atol=2e-2):
+            fail(f"K5 at {label} {(B, H, K, S, hd)}: max abs err {err} "
+                 "against its plain version exceeds 2e-2")
+        # S = 1024 with a 1024 window masks nothing beyond causality, so
+        # SDPA's causal mask computes the same function there.
+        if window and window < S:
+            fail(f"{label}: SDPA has no window mask to compare with")
+        lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            q, k, v, is_causal=causal, enable_gqa=True)
+        if not torch.allclose(lib().float(), want.float(), rtol=2e-2,
+                              atol=2e-2):
+            fail(f"{label}: scaled_dot_product_attention disagrees with K5's "
+                 "plain version")
+        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw))
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, **kw), reps=10)
+        library_ms = time_ms(torch, lib)
+        n_bytes = 2 * (2 * B * H * S * hd + 2 * B * K * S * hd)
+        n_ops = 4 * B * H * hd * attention_pairs(S, causal, window)
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_ops / BF16_OPS_PER_S * 1e3
+        print(f"kernel flash_attention bf16 at {label} (B, H, K, S, hd) = "
+              f"{(B, H, K, S, hd)} causal {causal} window {window}: within "
+              f"2e-2 of plain, max abs err {err}; {ms:.6f} ms/launch, plain "
+              f"{plain_ms:.6f} ms, scaled_dot_product_attention "
+              f"{library_ms:.6f} ms, bytes {n_bytes}, ops {n_ops}, bound "
+              f"{max(bytes_ms, ops_ms):.6f} ms by "
+              f"{'bytes' if bytes_ms >= ops_ms else 'operations'}",
+              flush=True)
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+
+def count_k5_calls(layers) -> tuple[list, object]:
+    """Wrap the models' K5 entry point so that each call records its
+    ``causal`` flag; returns the record and the undo."""
+    real, calls = layers.kops.flash_attention, []
+
+    def counted(*args, **kw):
+        calls.append(kw.get("causal", True))
+        return real(*args, **kw)
+
+    layers.kops.flash_attention = counted
+    return calls, lambda: setattr(layers.kops, "flash_attention", real)
+
+
+def moe_routing(moe, cfg, p, h2):
+    """Per token of h2 [B, S, d]: the [T, E] routed and routed-and-kept
+    expert masks of ``moe_apply`` with ``cfg``'s capacity."""
+    import torch
+    xt = h2.reshape(-1, h2.shape[-1])
+    T, E = xt.shape[0], cfg.n_experts
+    _, _, top_i = moe.route(cfg, p, xt)
+    order, keep, _ = moe.dispatch(top_i, E, moe.capacity(cfg, T))
+    kept = torch.empty_like(keep)
+    kept[order] = keep
+    routed = torch.zeros((T, E), dtype=torch.bool, device=xt.device)
+    routed.scatter_(1, top_i, True)
+    held = torch.zeros_like(routed)
+    held.scatter_(1, top_i, kept.view_as(top_i))
+    return routed, held
+
+
+def moe_per_block_checks(torch, transformer, moe, model, params, toks):
+    """One float32 prefill with K5 on in which every block also runs with
+    K5 off on the same input; each block's outputs agree within 2e-4 over
+    the tokens that both runs route to the same experts and keep (a token
+    whose top-k set or kept set differs is a near tie of router scores,
+    counted, not gated).  Returns the logits, the worst difference and the
+    flipped share of (token, MoE layer) pairs."""
+    import dataclasses
+    cfg_off = dataclasses.replace(model.config, use_flash_kernel=False)
+    real_block, real_moe = transformer.block_apply, transformer.moe_apply
+    stats = {"worst": 0.0, "flipped": 0, "pairs": 0}
+
+    def checked(cfg_, p, x, *args, kind="dense", **kw):
+        seen = []
+
+        def spy(c, pm, h2):
+            seen.append(h2)
+            return real_moe(c, pm, h2)
+
+        transformer.moe_apply = spy
+        try:
+            on = real_block(cfg_, p, x, *args, kind=kind, **kw)
+            off = real_block(cfg_off, p, x, *args, kind=kind, **kw)
+        finally:
+            transformer.moe_apply = real_moe
+        agree = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+        if kind == "moe":
+            r_on, k_on = moe_routing(moe, cfg_, p["moe"], seen[0])
+            r_off, k_off = moe_routing(moe, cfg_, p["moe"], seen[1])
+            agree = ((r_on == r_off).all(1) & (k_on == k_off).all(1)
+                     ).view(x.shape[:2])
+            stats["flipped"] += int((~agree).sum())
+            stats["pairs"] += agree.numel()
+        diff = float((on[0] - off[0]).abs()[agree].max())
+        stats["worst"] = max(stats["worst"], diff)
+        if not torch.allclose(on[0][agree], off[0][agree], rtol=2e-4,
+                              atol=2e-4):
+            fail(f"deepseek f32 {kind} block: K5 on vs off max abs diff "
+                 f"{diff} exceeds 2e-4 over identically routed tokens")
+        return on
+
+    transformer.block_apply = checked
+    try:
+        logits = model.prefill(params, {"tokens": toks})
+    finally:
+        transformer.block_apply = real_block
+    torch.cuda.synchronize()
+    return logits, stats["worst"], stats["flipped"] / max(stats["pairs"], 1)
+
+
+def routed_sets(moe, record):
+    """Wrap ``moe.route`` so that each call appends its [T, k] expert ids,
+    sorted per token, to ``record``; returns the undo."""
+    real = moe.route
+
+    def spy(cfg, p, xt):
+        out = real(cfg, p, xt)
+        record.append(out[2].sort(dim=-1).values)
+        return out
+
+    moe.route = spy
+    return lambda: setattr(moe, "route", real)
+
+
+def decode_positions(torch, model, params, toks, n: int, frames=None):
+    """Logits [B, n, V] of n stepped decode positions from an empty cache
+    (audio: the encoder output of ``frames`` pinned into it first)."""
+    B = toks.shape[0]
+    cache = model.init_cache(B, n)
+    if frames is not None:
+        cache["enc_out"] = model.encode(params, frames)
+    out = []
+    for pos in range(n):
+        lg, cache = model.decode_step(
+            params, cache, toks[:, pos],
+            torch.full((B,), pos, dtype=torch.int32, device=toks.device))
+        out.append(lg)
+    return torch.stack(out, dim=1)
+
+
+def bf16_gate(torch, name, on, off, ref, gate: bool) -> str:
+    """K5 on and off bf16 logits against a float32 K5-off prefill of the
+    same inputs: max abs distances; K5 on may be no farther than 1.5x K5
+    off where ``gate``."""
+    d_on, d_off = (max(float((lg[b].float() - ref[b]).abs().max())
+                       for b in range(lg.shape[0])) for lg in (on, off))
+    if gate and not d_on <= 1.5 * d_off:
+        fail(f"{name} bf16 prefill: K5 on is {d_on} from the float32 "
+             f"prefill, more than 1.5x K5 off's {d_off}")
+    return (f"max abs logit distance to a float32 K5-off prefill: K5 on "
+            f"{d_on}, K5 off {d_off}"
+            + (" (limit: on <= 1.5x off)" if gate else
+               " (printed, not gated: routing flips dominate both)"))
+
+
+def serve_cli(torch, serve, arch: str, dev, V: int) -> None:
+    """The serve CLI at its defaults (batch 4, prompt 16, 32 tokens)."""
+    res = serve.main(["--arch", arch, "--device", str(dev)])
+    tokens, logits = res["tokens"], res["logits"]
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{arch} serve loop: non-finite logits")
+    if tokens.shape != (4, 32) or int(tokens.min()) < 0 or \
+            int(tokens.max()) >= V:
+        fail(f"{arch} serve loop: tokens {tuple(tokens.shape)} outside "
+             f"[0, {V})")
+    print(f"serve loop {arch} full width bf16: prefill (15 stepped "
+          f"positions) {res['prefill_s']:.6f} s, decode {res['decode_s']:.6f}"
+          f" s, {4 * 32 / res['decode_s']:.3f} tok/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    del res
+    torch.cuda.empty_cache()
+
+
+def timed_prefills(torch, on, off, params, batch, runs: list):
+    """bf16 K5-on (after a warm-up) and K5-off prefills: their logits and
+    wall seconds."""
+    holder = {}
+    on.prefill(params, batch)                               # warm-up
+    t_on = wall_s(torch, lambda: holder.update(on=on.prefill(params, batch)))
+    t_off = wall_s(torch, lambda: holder.update(
+        off=off.prefill(params, batch)))
+    runs[0] += 2                  # the warm-up and the timed run
+    return holder["on"], holder["off"], t_on, t_off
+
+
+def deepseek_case(torch, np, dev, runs: list) -> None:
+    """11(a): deepseek-moe-16b at full width (16.4e9 float32 params)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, moe, transformer
+
+    base = dataclasses.replace(get_config("deepseek-moe-16b"),
+                               use_flash_kernel=True)
+    V, E = base.vocab, base.n_experts
+    rng = np.random.default_rng(11)
+    cfg32 = dataclasses.replace(base, compute_dtype="float32")
+    on = build_model(cfg32, device=dev)
+    t0 = time.perf_counter()
+    params = on.init(0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"families: deepseek-moe-16b full width, {n_params} float32 params "
+          f"({torch.cuda.memory_allocated() / 2**30:.3f} GiB) from "
+          f"torch.Generator seed 0 in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    toks = torch.tensor(rng.integers(0, V, (2, 256)), dtype=torch.int32,
+                        device=dev)
+    lg_on, worst, flipped = moe_per_block_checks(torch, transformer, moe, on,
+                                                 params, toks)
+    runs[0] += 1
+    if flipped > 1e-3:
+        fail(f"deepseek f32: {flipped} of (token, MoE layer) pairs route "
+             "differently with K5 on and off, limit 1e-3")
+    lg_off = build_model(dataclasses.replace(cfg32, use_flash_kernel=False),
+                         device=dev).prefill(params, {"tokens": toks})
+    if not torch.isfinite(lg_on).all() or lg_on.shape != (2, 256, V):
+        fail(f"deepseek f32 prefill: logits {tuple(lg_on.shape)} not finite")
+    print(f"deepseek f32 B=2 S=256, capacity factor {base.capacity_factor}, "
+          f"each of the {base.n_layers} blocks on the K5 prefill's own "
+          f"inputs: K5 on vs "
+          f"off max abs diff {worst} over identically routed and kept "
+          f"tokens (within rtol = atol = 2e-4); (token, MoE layer) pairs "
+          f"routed differently: share {flipped} (limit 1e-3); whole prefill "
+          f"K5 on vs off max abs logit diff "
+          f"{float((lg_on - lg_off).abs().max())} (printed, not gated)",
+          flush=True)
+    del lg_on, lg_off
+
+    # Decode vs prefill with no dropping (capacity factor = n_experts, as
+    # reduced() has it): a dropping prefill and a 2-token decode keep
+    # different tokens.
+    nodrop = build_model(dataclasses.replace(cfg32, capacity_factor=float(E)),
+                         device=dev)
+    pre, dec = [], []
+    undo = routed_sets(moe, pre)
+    try:
+        full = nodrop.prefill(params, {"tokens": toks})
+    finally:
+        undo()
+    runs[0] += 1
+    undo = routed_sets(moe, dec)
+    try:
+        steps = decode_positions(torch, nodrop, params, toks, 16)
+    finally:
+        undo()
+    L = len(pre)
+    B, S = toks.shape
+    same = torch.ones((B, 16), dtype=torch.bool, device=dev)
+    for s in range(16):
+        for layer in range(L):
+            p_ids = pre[layer].view(B, S, -1)[:, s]
+            same[:, s] &= (p_ids == dec[s * L + layer]).all(-1)
+    same = same.cumprod(dim=1).bool()          # a flip reaches later tokens
+    diff = float((steps - full[:, :16]).abs()[same].max())
+    if not torch.allclose(steps[same], full[:, :16][same], rtol=2e-2,
+                          atol=2e-2):
+        fail(f"deepseek f32 no-drop decode: 16 stepped positions vs the "
+             f"prefill max abs diff {diff} exceeds 2e-2")
+    print(f"deepseek f32 decode vs prefill, capacity factor {float(E)} (no "
+          f"drop: a dropping prefill and a 2-token decode keep different "
+          f"tokens): 16 stepped positions max abs diff {diff} (limit 2e-2) "
+          f"over {int(same.sum())} of {same.numel()} positions routed alike "
+          f"in all {L} MoE layers", flush=True)
+    del full, steps, pre, dec
+
+    # bf16 compute (the config's own): timed prefill, K5 on vs off.
+    on = build_model(base, device=dev)
+    off = build_model(dataclasses.replace(base, use_flash_kernel=False),
+                      device=dev)
+    batch = {"tokens": torch.tensor(rng.integers(0, V, (4, 1024)),
+                                    dtype=torch.int32, device=dev)}
+    lg_on, lg_off, t_on, t_off = timed_prefills(torch, on, off, params, batch,
+                                                runs)
+    if not bool(torch.isfinite(lg_on).all()):
+        fail("deepseek bf16 prefill: non-finite logits")
+    agree = float((lg_on.argmax(-1) == lg_off.argmax(-1)).float().mean())
+    ref = build_model(dataclasses.replace(cfg32, use_flash_kernel=False),
+                      device=dev).prefill(params, batch)
+    print(f"deepseek bf16 B=4 S=1024 prefill: K5 on {t_on:.6f} s, K5 off "
+          f"{t_off:.6f} s, {4 * 1024 / t_on:.3f} tokens/s; K5 on vs off "
+          f"argmax agreement {agree}; "
+          f"{bf16_gate(torch, 'deepseek', lg_on, lg_off, ref, False)}",
+          flush=True)
+    del lg_on, lg_off, ref
+    spent = split_seconds(torch, transformer, ["moe_apply"])
+    try:
+        t_split = wall_s(torch, lambda: on.prefill(params, batch))
+    finally:
+        transformer.moe_apply = moe.moe_apply
+    runs[0] += 1
+    busy, rows = device_busy(torch, lambda: on.prefill(params, batch))
+    runs[0] += 1
+    print(f"deepseek bf16 prefill split (each MoE layer synchronised): "
+          f"moe_apply {spent['moe_apply']:.6f} s of {t_split:.6f} s, share "
+          f"{spent['moe_apply'] / t_split:.6f}; device profile: busy "
+          f"{busy:.6f} s of {t_on:.6f} s wall, idle share "
+          f"{1.0 - busy / t_on:.6f}", flush=True)
+    for us, count, key in rows[:6]:
+        print(f"  device {us / 1e3:.3f} ms in {count} x {key[:70]}")
+    del params, on, off, batch
+    torch.cuda.empty_cache()
+    serve_cli(torch, serve, "deepseek-moe-16b", dev, V)
+
+
+def hymba_case(torch, np, dev, runs: list) -> None:
+    """11(b): hymba-1.5b at full width."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, transformer
+
+    base = dataclasses.replace(get_config("hymba-1.5b"),
+                               use_flash_kernel=True)
+    V = base.vocab
+    rng = np.random.default_rng(12)
+    cfg32 = dataclasses.replace(base, compute_dtype="float32")
+    on = build_model(cfg32, device=dev)
+    off = build_model(dataclasses.replace(cfg32, use_flash_kernel=False),
+                      device=dev)
+    params = on.init(0)
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"families: hymba-1.5b full width, {n_params} float32 params; "
+          f"windows {transformer.layer_windows(base)}", flush=True)
+    toks = torch.tensor(rng.integers(0, V, (2, 2048)), dtype=torch.int32,
+                        device=dev)
+    lg_on = on.prefill(params, {"tokens": toks})
+    runs[0] += 1
+    lg_off = off.prefill(params, {"tokens": toks})
+    diff = float((lg_on - lg_off).abs().max())
+    if not torch.isfinite(lg_on).all() or not torch.allclose(
+            lg_on, lg_off, rtol=2e-4, atol=2e-4):
+        fail(f"hymba f32 prefill: K5 on vs off max abs diff {diff} exceeds "
+             "2e-4")
+    dec = decode_positions(torch, on, params, toks, 16)
+    dec_diff = float((dec - lg_on[:, :16]).abs().max())
+    if not torch.allclose(dec, lg_on[:, :16], rtol=2e-2, atol=2e-2):
+        fail(f"hymba f32 decode: 16 stepped positions (Mamba's recurrence) "
+             f"vs the K5 prefill (its scan) max abs diff {dec_diff} exceeds "
+             "2e-2")
+    print(f"hymba f32 B=2 S=2048 (the 1024 windows bite): prefill K5 on vs "
+          f"off max abs diff {diff} (limit 2e-4); 16 decode steps vs K5 "
+          f"prefill max abs diff {dec_diff} (limit 2e-2); logits |max| "
+          f"{float(lg_on.abs().max())}", flush=True)
+    del lg_on, lg_off, dec
+
+    on = build_model(base, device=dev)
+    off = build_model(dataclasses.replace(base, use_flash_kernel=False),
+                      device=dev)
+    batch = {"tokens": torch.tensor(rng.integers(0, V, (4, 1024)),
+                                    dtype=torch.int32, device=dev)}
+    lg_on, lg_off, t_on, t_off = timed_prefills(torch, on, off, params, batch,
+                                                runs)
+    if not bool(torch.isfinite(lg_on).all()):
+        fail("hymba bf16 prefill: non-finite logits")
+    ref = build_model(dataclasses.replace(cfg32, use_flash_kernel=False),
+                      device=dev).prefill(params, batch)
+    print(f"hymba bf16 B=4 S=1024 prefill: K5 on {t_on:.6f} s, K5 off "
+          f"{t_off:.6f} s, {4 * 1024 / t_on:.3f} tokens/s; "
+          f"{bf16_gate(torch, 'hymba', lg_on, lg_off, ref, True)}",
+          flush=True)
+    del lg_on, lg_off, ref
+    parts = {n: getattr(transformer, n) for n in ("attention", "mamba_seq")}
+    spent = split_seconds(torch, transformer, parts)
+    try:
+        t_split = wall_s(torch, lambda: on.prefill(params, batch))
+    finally:
+        for name, fn in parts.items():
+            setattr(transformer, name, fn)
+    runs[0] += 1
+    busy, rows = device_busy(torch, lambda: on.prefill(params, batch))
+    runs[0] += 1
+    print(f"hymba bf16 prefill split (each block part synchronised): "
+          f"attention {spent['attention']:.6f} s, Mamba "
+          f"{spent['mamba_seq']:.6f} s, of {t_split:.6f} s; device profile: "
+          f"busy {busy:.6f} s of {t_on:.6f} s wall, idle share "
+          f"{1.0 - busy / t_on:.6f}", flush=True)
+    for us, count, key in rows[:6]:
+        print(f"  device {us / 1e3:.3f} ms in {count} x {key[:70]}")
+    del params, on, off, batch
+    torch.cuda.empty_cache()
+    serve_cli(torch, serve, "hymba-1.5b", dev, V)
+
+
+def whisper_case(torch, np, dev, runs: list) -> None:
+    """11(c): whisper-tiny at full width, built with max_seq 448 (Whisper's
+    decoder context); K5 on the encoder (non-causal) and on the decoder's
+    self-attention (causal), never on cross-attention."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, layers
+
+    base = dataclasses.replace(get_config("whisper-tiny"),
+                               use_flash_kernel=True)
+    V, F_, d = base.vocab, base.enc_frames, base.d_model
+    rng = np.random.default_rng(13)
+
+    def inputs(dtype_seed):
+        r = np.random.default_rng(dtype_seed)
+        return {"tokens": torch.tensor(r.integers(0, V, (2, 256)),
+                                       dtype=torch.int32, device=dev),
+                "frames": torch.tensor(r.standard_normal((2, F_, d)),
+                                       dtype=torch.float32, device=dev)}
+
+    cfg32 = dataclasses.replace(base, compute_dtype="float32")
+    on = build_model(cfg32, max_seq=448, device=dev)
+    off = build_model(dataclasses.replace(cfg32, use_flash_kernel=False),
+                      max_seq=448, device=dev)
+    params = on.init(0)
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"families: whisper-tiny full width, {n_params} float32 params, "
+          f"max_seq 448", flush=True)
+    batch = inputs(14)
+    calls, undo = count_k5_calls(layers)
+    try:
+        lg_on = on.prefill(params, batch)
+    finally:
+        undo()
+    runs[0] += 1
+    if calls != [False] * base.n_enc_layers + [True] * base.n_layers:
+        fail(f"whisper prefill: K5 calls (causal flags) {calls}, expected "
+             f"{base.n_enc_layers} non-causal then {base.n_layers} causal and "
+             "none for cross-attention")
+    lg_off = off.prefill(params, batch)
+    diff = float((lg_on - lg_off).abs().max())
+    if not torch.isfinite(lg_on).all() or not torch.allclose(
+            lg_on, lg_off, rtol=2e-4, atol=2e-4):
+        fail(f"whisper f32 encode + prefill: K5 on vs off max abs diff "
+             f"{diff} exceeds 2e-4")
+    dec = decode_positions(torch, on, params, batch["tokens"], 16,
+                           frames=batch["frames"])
+    runs[1] += 1                  # its encoder ran K5 once a layer
+    dec_diff = float((dec - lg_on[:, :16]).abs().max())
+    if not torch.allclose(dec, lg_on[:, :16], rtol=2e-2, atol=2e-2):
+        fail(f"whisper f32 decode: 16 stepped positions vs the K5 prefill "
+             f"max abs diff {dec_diff} exceeds 2e-2")
+    print(f"whisper f32 frames [2, {F_}, {d}], decoder S=256: encode + "
+          f"prefill K5 on vs off max abs diff {diff} (limit 2e-4); 16 decode "
+          f"steps vs K5 prefill max abs diff {dec_diff} (limit 2e-2); K5 "
+          f"calls a prefill: {calls.count(False)} non-causal (encoder), "
+          f"{calls.count(True)} causal (decoder), 0 cross-attention",
+          flush=True)
+    del lg_on, lg_off, dec
+
+    on = build_model(base, max_seq=448, device=dev)
+    off = build_model(dataclasses.replace(base, use_flash_kernel=False),
+                      max_seq=448, device=dev)
+    batch = inputs(15)
+    lg_on, lg_off, t_on, t_off = timed_prefills(torch, on, off, params, batch,
+                                                runs)
+    if not bool(torch.isfinite(lg_on).all()):
+        fail("whisper bf16 prefill: non-finite logits")
+    ref = build_model(dataclasses.replace(cfg32, use_flash_kernel=False),
+                      max_seq=448, device=dev).prefill(params, batch)
+    busy, rows = device_busy(torch, lambda: on.prefill(params, batch))
+    runs[0] += 1
+    print(f"whisper bf16 encode + prefill (frames [2, {F_}, {d}], S=256): K5 "
+          f"on {t_on:.6f} s, K5 off {t_off:.6f} s; "
+          f"{bf16_gate(torch, 'whisper', lg_on, lg_off, ref, True)}; device "
+          f"profile: busy {busy:.6f} s of {t_on:.6f} s wall, idle share "
+          f"{1.0 - busy / t_on:.6f}", flush=True)
+    for us, count, key in rows[:6]:
+        print(f"  device {us / 1e3:.3f} ms in {count} x {key[:70]}")
+    del params, on, off, batch, lg_on, lg_off, ref
+    torch.cuda.empty_cache()
+    serve_cli(torch, serve, "whisper-tiny", dev, V)
+
+
+def families_phase(torch, np, kernels, totals: dict, dev) -> None:
+    """Phase 11: deepseek-moe-16b, hymba-1.5b and whisper-tiny at full
+    width through prefill (K5 on) and the serve CLI, from an empty
+    allocator; K5 first at their three bf16 serving shapes.  The counters
+    are zeroed just before the models run and read just after."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    print(f"families: device memory allocated at the start "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
+    from repro_torch.configs import get_config
+    family_attention_timing(torch, np, dev)
+    for arch, case in (("deepseek-moe-16b", deepseek_case),
+                       ("hymba-1.5b", hymba_case),
+                       ("whisper-tiny", whisper_case)):
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        runs = [0, 0]                    # K5 prefills, encoder runs alone
+        case(torch, np, dev, runs)
+        counts = kernels.launch_counts()
+        # K5 launches a prefill (one per self-attention layer: 28, 32, and
+        # whisper's 4 + 4) and an encoder run alone (whisper's 4).
+        cfg = get_config(arch)
+        per_encode = cfg.n_enc_layers
+        per_prefill = cfg.n_layers + per_encode
+        if counts["flash_attention"] != per_prefill * runs[0] \
+                + per_encode * runs[1]:
+            fail(f"{arch}: K5 launched {counts['flash_attention']} times, "
+                 f"expected {per_prefill} per K5 prefill x {runs[0]} + "
+                 f"{per_encode} per encoder run x {runs[1]}")
+        for name, n in counts.items():
+            totals[name] += n
+        print(f"families {arch}: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+              f"launches {counts}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"families phase {time.perf_counter() - t_phase:.6f} s wall",
           flush=True)
 
 
@@ -2162,6 +2751,7 @@ def main() -> None:
     entry_point_phase(torch, np, kernels, totals, dev)
     service_phase(torch, np, rt, kernels, totals)
     training_phase(torch, np, kernels, totals, dev)
+    families_phase(torch, np, kernels, totals, dev)
     for row in rows:
         row["launches"] = totals[row["name"]]
         if row["launches"] <= 0:

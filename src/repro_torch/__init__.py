@@ -17,17 +17,19 @@ import torch
 __all__ = ["resolve_device"]
 
 
-def resolve_device(device="cuda") -> torch.device:
+def resolve_device(device="cuda", *, meta: bool = False) -> torch.device:
     """``device`` as a :class:`torch.device`.
 
     Raises when a CUDA device is asked for and ``torch.cuda.is_available()``
-    is False: there is no silent CPU fallback.
+    is False: there is no silent CPU fallback.  With ``meta=True`` the
+    ``meta`` device (shapes only, no storage) is accepted too: a model's
+    param tree can be built there without allocating it.
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {device!r} requested but CUDA is not available; "
             "pass device='cpu' to run the plain PyTorch versions")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu") + (("meta",) if meta else ()):
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
     return dev

@@ -14,9 +14,6 @@ contention-aware makespan of the placement::
 
     PYTHONPATH=src python -m repro_torch.launch.sched_launch \
         --devices 8 --servers 2 --jobs 6 --policy sjf-bco --steps 4
-
-Every job's family is checked before anything is scheduled: families the
-port does not have yet stop the run (no other architecture stands in).
 """
 from __future__ import annotations
 
@@ -33,7 +30,6 @@ from repro_torch.data import DataConfig, make_batch
 from repro_torch.dist.steps import RingMesh, make_rar_train_step
 from repro_torch.models import build_model
 from repro_torch.models.config import InputShape
-from repro_torch.models.model import NOT_PORTED
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig
 
@@ -83,12 +79,6 @@ def main(argv=None) -> dict:
     per_srv = args.devices // args.servers
     cluster = Cluster(capacities=(per_srv,) * args.servers)
     jobs, job_archs = job_queue(args.jobs, args.devices, args.seed)
-    for j, arch in enumerate(job_archs):
-        family = get_config(arch).family
-        if family in NOT_PORTED:
-            raise SystemExit(
-                f"job {j} ({arch}): the {family} family is not ported yet "
-                f"({NOT_PORTED[family]}); run fewer --jobs")
 
     # --- schedule -----------------------------------------------------------
     sched = schedule_on(

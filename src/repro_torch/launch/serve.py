@@ -6,6 +6,9 @@ unless ``--device cpu`` is given::
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch llama3.2-1b --reduced --batch 4 --prompt-len 16 --gen 32
 
+An audio arch (whisper-tiny) gets seeded frame embeddings, which its
+encoder turns into the cross-attention input once.
+
 Seconds are host wall time around work that ends in
 ``torch.cuda.synchronize()`` (on a CUDA device).
 """
@@ -27,18 +30,23 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve_loop(model, params, prompt: torch.Tensor, gen: int) -> dict:
+def serve_loop(model, params, prompt: torch.Tensor, gen: int,
+               frames: torch.Tensor | None = None) -> dict:
     """Step ``prompt`` [B, P] (int32, on the model's device) through the
     cache, then decode ``gen`` tokens greedily.
 
     Prefill steps the prompt through the decode path (one code path for
-    recurrent and attention families alike), as the reference does.
+    recurrent and attention families alike), as the reference does.  An
+    audio model first runs its encoder once over ``frames`` [B, F, d] and
+    pins the output into the cache (outside the timed prefill, as there).
     Returns ``tokens`` [B, gen] (int32, on the device), the last step's
     ``logits`` [B, vocab], and ``prefill_s`` / ``decode_s``."""
     B, P = prompt.shape
     dev = model.device
     serve = make_serve_step(model)
     cache = model.init_cache(B, P + gen)
+    if frames is not None:
+        cache["enc_out"] = model.encode(params, frames)
 
     def at(pos):
         return torch.full((B,), pos, dtype=torch.int32, device=dev)
@@ -86,7 +94,12 @@ def main(argv=None) -> dict:
     rng = np.random.default_rng(0)
     prompt = torch.tensor(rng.integers(0, cfg.vocab, (B, args.prompt_len)),
                           dtype=torch.int32, device=model.device)
-    res = serve_loop(model, params, prompt, args.gen)
+    frames = None
+    if cfg.family == "audio":
+        frames = torch.tensor(
+            rng.standard_normal((B, cfg.enc_frames, cfg.d_model)),
+            dtype=torch.float32, device=model.device)
+    res = serve_loop(model, params, prompt, args.gen, frames)
     gen = res["tokens"].cpu().numpy()
     gen_t = res["decode_s"]
     print(f"[serve] {cfg.name}: batch {B}, prompt {args.prompt_len}, "

@@ -11,7 +11,8 @@ The port of ``repro/models/layers.py``, function for function:
   * ``attention``         -- GQA self-attention with optional sliding
                              window, logit softcap (gemma2) and a KV cache
                              with absolute slot positions (supports rolling
-                             caches); prefill attention goes through the K5
+                             caches), and cross-attention (whisper);
+                             self-attention prefill goes through the K5
                              kernel when ``cfg.use_flash_kernel``
   * ``mlp``               -- swiglu / geglu / gelu feed-forward, in plain
                              torch in the compute dtype as in the
@@ -22,7 +23,11 @@ and is left out.  Windows are Python ints here (the port runs its layer
 stack as a Python loop), so the K5 branch of ``attention`` is live for
 every layer.  ``bf16_grad_barrier`` is the reference's identity whose
 backward casts the cotangent to bfloat16 (no model calls it, as in the
-reference).  Cross-attention (whisper) waits for the audio family.
+reference).
+
+Params are drawn from a ``torch.Generator`` (:func:`generator`); on the
+``meta`` device, which has none, the init functions draw nothing and
+return shape-only tensors.
 """
 from __future__ import annotations
 
@@ -65,13 +70,41 @@ def dtype_of(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+class _ShapeOnly:
+    """Stands in for a ``torch.Generator`` on the ``meta`` device, which
+    has none: the init functions read its ``device`` and draw nothing."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+
+
+def generator(device: torch.device, seed: int):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed`` (a
+    shape-only stand-in on the ``meta`` device)."""
+    if device.type == "meta":
+        return _ShapeOnly(device)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def init_normal(gen: torch.Generator, shape: tuple, scale: float,
                 dtype: torch.dtype) -> torch.Tensor:
     """Standard-normal float32 draws on the generator's device, times
     ``scale``, cast to ``dtype`` (the reference's init recipe)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)         # in place: one leaf-sized buffer
+
+
+def init_uniform(gen: torch.Generator, shape: tuple,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Uniform float32 draws in [0, 1) on the generator's device, cast to
+    ``dtype``."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=gen.device)
+    return torch.rand(shape, generator=gen, device=gen.device,
+                      dtype=torch.float32).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +130,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
 
 def init_embedding(gen, vocab: int, d: int, dtype) -> torch.Tensor:
     return init_normal(gen, (vocab, d), 0.02, dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal position embeddings [seq, d]."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    log_base = torch.log(torch.tensor(10000.0, device=device))
+    inv = torch.exp(-log_base * dim / max(d // 2 - 1, 1))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -191,8 +235,10 @@ def _dequantize_kv(q, scale, dtype):
     return (q.float() * scale[..., None]).to(dtype)
 
 
-def init_attn(gen, cfg: ModelConfig, dtype, lead: tuple = ()):
-    h, k = cfg.n_heads, cfg.n_kv_heads
+def init_attn(gen, cfg: ModelConfig, dtype, lead: tuple = (), *,
+              n_heads: int | None = None, n_kv: int | None = None):
+    h = n_heads or cfg.n_heads
+    k = n_kv or cfg.n_kv_heads
     d, hd = cfg.d_model, cfg.head_dim
     s = 1.0 / math.sqrt(d)
     return {
@@ -255,18 +301,30 @@ def _sdpa_auto(q, k, v, q_pos, k_pos, *, causal, window, softcap,
 
 
 def attention(cfg: ModelConfig, p, x, q_pos, *, window: int = 0,
-              cache: KVCache | None = None, rope: bool = True,
+              cache: KVCache | None = None,
+              enc_out: torch.Tensor | None = None, rope: bool = True,
               causal: bool = True) -> tuple:
-    """Self-attention.  Returns (output, cache).
+    """Self- or cross-attention.  Returns (output, cache).
 
     ``cache`` given => decode: x holds the new token(s); K/V are written
-    into the cache (in place) at slot ``q_pos % Smax``."""
+    into the cache (in place) at slot ``q_pos % Smax``.  ``enc_out``
+    given => cross-attention (no mask, no rope, no cache, never K5: the
+    reference sends only self-attention prefill to its kernel)."""
     cd = dtype_of(cfg.compute_dtype)
     B, S, _ = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"].to(cd)).reshape(B, S, h, hd)
-    k = (x @ p["wk"].to(cd)).reshape(B, S, kh, hd)
-    v = (x @ p["wv"].to(cd)).reshape(B, S, kh, hd)
+    kv_src = enc_out if enc_out is not None else x
+    Skv = kv_src.shape[1]
+    k = (kv_src @ p["wk"].to(cd)).reshape(B, Skv, kh, hd)
+    v = (kv_src @ p["wv"].to(cd)).reshape(B, Skv, kh, hd)
+
+    if enc_out is not None:
+        k_pos = torch.zeros((B, Skv), dtype=torch.int32, device=x.device)
+        out = _sdpa_auto(q, k, v, q_pos, k_pos, causal=False, window=0,
+                         softcap=cfg.attn_softcap, compute_dtype=cd,
+                         q_chunk=cfg.q_chunk)
+        return out @ p["wo"].to(cd), None
 
     if rope:
         q = apply_rope(q, q_pos, cfg.rope_theta, cfg.rope)
@@ -321,6 +379,18 @@ def init_mlp(gen, d: int, d_ff: int, kind: str, dtype, lead: tuple = ()):
     return p
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` step by step, each step
+    rounded to x's dtype and the constants in x's dtype, as the
+    reference's lowering computes it.  In bf16 ``F.gelu`` rounds once, and
+    its error and the reference's add up; in float32 the two agree to
+    rounding."""
+    c = torch.tensor(0.044715, dtype=x.dtype)
+    k = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(k * (x + c * (x * x * x))))
+    return x * cdf
+
+
 def mlp(p, x, kind: str) -> torch.Tensor:
     cd = x.dtype
     up = x @ p["w_up"].to(cd)
@@ -328,8 +398,8 @@ def mlp(p, x, kind: str) -> torch.Tensor:
         up = F.silu(x @ p["w_gate"].to(cd)) * up
     elif kind == "geglu":
         up = F.gelu(x @ p["w_gate"].to(cd), approximate="tanh") * up
-    elif kind == "gelu":
-        up = F.gelu(up, approximate="tanh")
+    elif kind == "gelu":                    # whisper, the only "gelu" MLP
+        up = gelu_tanh(up)
     else:
         raise ValueError(f"unknown mlp kind {kind}")
     return up @ p["w_down"].to(cd)

@@ -1,9 +1,13 @@
-"""xLSTM sequence mixers on torch tensors: the mLSTM (matrix memory) and
-sLSTM (scalar memory) blocks.
+"""State-space and recurrent sequence mixers on torch tensors: the Mamba
+head (Hymba) and the xLSTM cells (mLSTM / sLSTM).
 
-The port of the xLSTM half of ``repro/models/ssm.py``, function for
-function; the Mamba half (Hymba's SSM head) waits for the hybrid slice.
+The port of ``repro/models/ssm.py``, function for function:
 
+  * Mamba's selective-SSM recurrence h_t = a_t * h_{t-1} + b_t runs over
+    the sequence with :func:`associative_scan`, the odd/even recursion of
+    ``jax.lax.associative_scan`` (log depth, O(S) work, the reference's
+    association order), for train/prefill, and as a one-step recurrence
+    for decode.
   * The mLSTM's parallel form (train/prefill) is attention-style with an
     additive log-decay matrix.  With ``cfg.use_flash_kernel`` it goes
     through the K6 kernel (``repro_torch.kernels.ops.mlstm``, its plain
@@ -14,8 +18,11 @@ function; the Mamba half (Hymba's SSM head) waits for the hybrid slice.
     over the sequence here, one cell step per position.
 
 The reference's dtypes are kept: q/k/v enter the parallel form in fp32,
-the gate weights ``w_if``/``if_bias`` and every recurrent state are fp32.
-One card has no mesh, so the reference's ``shard_hint`` is left out.
+the gate weights ``w_if``/``if_bias`` and every recurrent state are fp32,
+and Mamba's ``dt_bias``/``A_log`` are fp32.  Where JAX promotes a
+compute-dtype activation against a float32 weight, the port casts the
+activation up (``torch.einsum`` refuses mixed dtypes).  One card has no
+mesh, so the reference's ``shard_hint`` is left out.
 """
 from __future__ import annotations
 
@@ -26,7 +33,170 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import init_normal, rms_norm
+from repro_torch.models.layers import init_normal, init_uniform, rms_norm
+
+# ---------------------------------------------------------------------------
+# associative scan
+# ---------------------------------------------------------------------------
+
+
+def _take(t: torch.Tensor, dim: int, start: int, stop=None, step: int = 1):
+    return t[(slice(None),) * dim + (slice(start, stop, step),)]
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """a[0], b[0], a[1], b[1], ... along ``dim`` (a one longer or equal)."""
+    m = b.shape[dim]
+    pairs = torch.stack([_take(a, dim, 0, m), b], dim=dim + 1
+                        ).flatten(dim, dim + 1)
+    return pairs if a.shape[dim] == m else torch.cat(
+        [pairs, _take(a, dim, m)], dim=dim)
+
+
+def associative_scan(fn, elems, dim: int = 0) -> list:
+    """Inclusive scan of the tensors ``elems`` along ``dim`` with the
+    associative ``fn(left, right) -> combined`` (each a sequence of
+    tensors): element t of the result is fn applied over elements 0..t.
+
+    The recursion of ``jax.lax.associative_scan``: combine adjacent pairs,
+    scan the half-size result (the odd elements), then combine each odd
+    result with the next even element.  Log depth, O(S) work, and the same
+    association order as the reference."""
+    elems = list(elems)
+    dim = dim % elems[0].dim()
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+    reduced = fn([_take(e, dim, 0, -1, 2) for e in elems],
+                 [_take(e, dim, 1, None, 2) for e in elems])
+    odd = associative_scan(fn, reduced, dim)
+    evens_in = [_take(e, dim, 2, None, 2) for e in elems]
+    if n % 2 == 0:
+        even = fn([_take(e, dim, 0, -1) for e in odd], evens_in)
+    else:
+        even = fn(odd, evens_in)
+    even = [torch.cat([_take(e, dim, 0, 1), r], dim=dim)
+            for e, r in zip(elems, even)]
+    return [_interleave(e, o, dim) for e, o in zip(even, odd)]
+
+
+# ---------------------------------------------------------------------------
+# Mamba-style selective SSM head (Hymba's parallel-to-attention branch)
+# ---------------------------------------------------------------------------
+
+_CONV_K = 4  # depthwise causal conv width
+
+
+def init_mamba(gen, cfg: ModelConfig, dtype, lead: tuple = ()):
+    """Every leaf with leading dims ``lead``; ``dt_bias`` and ``A_log``
+    float32 whatever ``dtype`` is."""
+    d = cfg.d_model
+    Hs, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    inner = Hs * P
+    dev = gen.device
+    return {
+        "w_in": init_normal(gen, lead + (d, 2 * inner), 1.0 / math.sqrt(d),
+                            dtype),
+        "w_conv": init_normal(gen, lead + (_CONV_K, inner), 0.2, dtype),
+        "w_B": init_normal(gen, lead + (Hs, P, N), P ** -0.5, dtype),
+        "w_C": init_normal(gen, lead + (Hs, P, N), P ** -0.5, dtype),
+        "w_dt": init_normal(gen, lead + (Hs, P), P ** -0.5, dtype),
+        "dt_bias": torch.zeros(lead + (Hs,), dtype=torch.float32,
+                               device=dev),
+        "A_log": init_uniform(gen, lead + (Hs, P, N), torch.float32),
+        "D": torch.ones(lead + (Hs, P), dtype=dtype, device=dev),
+        "w_out": init_normal(gen, lead + (inner, d), 1.0 / math.sqrt(inner),
+                             dtype),
+    }
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` step by step, x * (1 / (1 + exp(-x))), each step
+    rounded to x's dtype as the reference's lowering rounds it: in bf16
+    the Mamba head then matches the reference's bits (``F.silu`` rounds
+    once, and its error and the reference's add up); in float32 the two
+    agree to rounding."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def _promoted(u: torch.Tensor, w: torch.Tensor) -> tuple:
+    """u and w in their common dtype, as JAX promotes them."""
+    dt = torch.promote_types(u.dtype, w.dtype)
+    return u.to(dt), w.to(dt)
+
+
+def _mamba_gates(cfg, p, u):
+    """Shared discretisation math.  u: [..., Hs, P] -> a, b coefficients
+    (float32)."""
+    dt = F.softplus(
+        torch.einsum("...hp,hp->...h", u.float(), p["w_dt"].float())
+        + p["dt_bias"])                                       # [..., Hs]
+    A = -torch.exp(p["A_log"])                                # [Hs,P,N]
+    Bmat = torch.einsum("...hp,hpn->...hn", *_promoted(u, p["w_B"]))
+    a = torch.exp(dt[..., None, None] * A)                    # [..., Hs,P,N]
+    b = (dt[..., None] * Bmat)[..., None, :] * u[..., None]   # [..., Hs,P,N]
+    return a, b.float()
+
+
+def _ssm_combine(left, right):
+    a1, b1 = left
+    a2, b2 = right
+    return a1 * a2, a2 * b1 + b2
+
+
+def mamba_seq(cfg: ModelConfig, p, x):
+    """Parallel (train/prefill) pass.  x: [B,S,d] -> [B,S,d]."""
+    cd = x.dtype
+    B, S, d = x.shape
+    Hs, P = cfg.ssm_heads, cfg.ssm_head_dim
+    inner = Hs * P
+    uz = x @ p["w_in"].to(cd)
+    u, z = uz[..., :inner], uz[..., inner:]
+    # depthwise causal conv over the sequence axis, the taps summed in order
+    upad = F.pad(u, (0, 0, _CONV_K - 1, 0))
+    u = sum(upad[:, i:i + S] * p["w_conv"][i].to(cd)
+            for i in range(_CONV_K))
+    u = _silu(u).reshape(B, S, Hs, P)
+
+    a, b = _mamba_gates(cfg, p, u)
+    _, h = associative_scan(_ssm_combine, (a.float(), b), dim=1)
+    C = torch.einsum("bshp,hpn->bshn", *_promoted(u, p["w_C"])).float()
+    y = torch.einsum("bshpn,bshn->bshp", h, C).to(cd) \
+        + p["D"].to(cd) * u
+    y = y.reshape(B, S, inner) * _silu(z)
+    return y @ p["w_out"].to(cd)
+
+
+def init_mamba_state(cfg: ModelConfig, batch: int, dtype, device,
+                     lead: tuple = ()):
+    Hs, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    return {
+        "h": torch.zeros(lead + (batch, Hs, P, N), dtype=torch.float32,
+                         device=device),
+        "conv": torch.zeros(lead + (batch, _CONV_K - 1, Hs * P), dtype=dtype,
+                            device=device),
+    }
+
+
+def mamba_step(cfg: ModelConfig, p, state, x_t):
+    """One decode step.  x_t: [B,d] -> ([B,d], new state)."""
+    cd = x_t.dtype
+    B, d = x_t.shape
+    Hs, P = cfg.ssm_heads, cfg.ssm_head_dim
+    inner = Hs * P
+    uz = x_t @ p["w_in"].to(cd)
+    u, z = uz[..., :inner], uz[..., inner:]
+    hist = torch.cat([state["conv"], u[:, None, :]], dim=1)  # [B,K,inner]
+    u_c = sum(hist[:, i] * p["w_conv"][i].to(cd) for i in range(_CONV_K))
+    u_c = _silu(u_c).reshape(B, Hs, P)
+
+    a, b = _mamba_gates(cfg, p, u_c)
+    h = a.float() * state["h"] + b
+    C = torch.einsum("bhp,hpn->bhn", *_promoted(u_c, p["w_C"])).float()
+    y = torch.einsum("bhpn,bhn->bhp", h, C).to(cd) + p["D"].to(cd) * u_c
+    y = (y.reshape(B, inner) * _silu(z)) @ p["w_out"].to(cd)
+    return y, {"h": h, "conv": hist[:, 1:]}
+
 
 # ---------------------------------------------------------------------------
 # mLSTM (matrix memory)

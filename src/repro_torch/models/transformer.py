@@ -1,8 +1,10 @@
-"""The dense transformer family (llama3 / gemma2 / chatglm3, internvl2's
-backbone) on torch tensors.
+"""The transformer families on torch tensors: dense (llama3 / gemma2 /
+chatglm3, internvl2's backbone), moe (deepseek-moe-16b / kimi-k2),
+hybrid (hymba: attention and Mamba heads in parallel) and audio (whisper:
+an encoder over stub frame embeddings and a cross-attending decoder).
 
-The port of the dense half of ``repro/models/transformer.py``.
-``build_dense`` returns the same functional API as the reference:
+The port of ``repro/models/transformer.py``.  Every builder returns the
+same functional API as the reference:
 
   init(seed)                           -> params dict
   loss_fn(params, batch)               -> (loss, metrics)
@@ -13,8 +15,7 @@ The port of the dense half of ``repro/models/transformer.py``.
 Parameters keep the reference's names and its stacked layout: every leaf
 under ``"layers"`` carries a leading ``[L]`` dim.  The reference scans
 over that dim; the port runs a Python loop over it, so each layer's window
-is a Python int.  ``build_moe``, ``build_hybrid`` and ``build_audio`` wait
-for later slices.
+is a Python int.  ``build_audio`` also returns ``encode(params, frames)``.
 """
 from __future__ import annotations
 
@@ -25,10 +26,14 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (KVCache, attention, dtype_of,
-                                       init_attn, init_embedding,
+                                       generator, init_attn, init_embedding,
                                        init_kv_cache, init_mlp, init_normal,
                                        init_rms_norm, mlp, rms_norm,
+                                       sinusoidal_positions,
                                        softmax_cross_entropy)
+from repro_torch.models.moe import init_moe, moe_apply
+from repro_torch.models.ssm import (init_mamba, init_mamba_state, mamba_seq,
+                                    mamba_step)
 
 # ---------------------------------------------------------------------------
 # per-layer window schedule
@@ -48,32 +53,64 @@ def layer_windows(cfg: ModelConfig) -> list[int]:
 
 
 # ---------------------------------------------------------------------------
-# decoder block (dense)
+# decoder block (dense / moe / hybrid / cross)
 # ---------------------------------------------------------------------------
 
 
-def init_block(gen, cfg: ModelConfig, dtype, lead: tuple = ()):
-    """A dense block's params, each leaf with leading dims ``lead`` (the
-    moe, hybrid and cross kinds wait for their families)."""
+def init_block(gen, cfg: ModelConfig, dtype, *, kind: str = "dense",
+               d_ff: int = 0, lead: tuple = ()):
+    """A block's params, each leaf with leading dims ``lead``.  kind:
+    dense | moe | hybrid | cross (audio decoder)."""
     dev = gen.device
-    return {
+    p = {
         "ln1": init_rms_norm(cfg.d_model, dtype, dev, lead),
         "attn": init_attn(gen, cfg, dtype, lead),
         "ln2": init_rms_norm(cfg.d_model, dtype, dev, lead),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dtype, lead),
     }
+    if kind == "moe":
+        p["moe"] = init_moe(gen, cfg, dtype, lead)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, d_ff or cfg.d_ff, cfg.mlp,
+                            dtype, lead)
+    if kind == "hybrid":
+        p["mamba"] = init_mamba(gen, cfg, dtype, lead)
+    if kind == "cross":
+        p["ln_x"] = init_rms_norm(cfg.d_model, dtype, dev, lead)
+        p["xattn"] = init_attn(gen, cfg, dtype, lead)
+    return p
 
 
 def block_apply(cfg: ModelConfig, p, x, q_pos, window: int, *,
-                cache: KVCache | None = None, causal: bool = True):
-    """Pre-norm attention + MLP with residuals.  Returns (x, cache)."""
+                kind: str = "dense", cache: KVCache | None = None,
+                ssm_state=None, enc_out=None, causal: bool = True):
+    """Pre-norm attention (with Hymba's parallel Mamba head, or whisper's
+    cross-attention) + MLP or MoE, with residuals.  Returns (x, cache,
+    ssm_state, aux): ``aux`` is the MoE's float32 loss, None for the other
+    kinds."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps, cfg.norm_cast_early)
     attn_out, new_cache = attention(
         cfg, p["attn"], h, q_pos, window=window, cache=cache,
         rope=cfg.rope != "none", causal=causal)
+    new_ssm = None
+    if kind == "hybrid":
+        if ssm_state is None:
+            m_out = mamba_seq(cfg, p["mamba"], h)
+        else:
+            m_out, new_ssm = mamba_step(cfg, p["mamba"], ssm_state, h[:, 0])
+            m_out = m_out[:, None, :]
+        attn_out = 0.5 * (attn_out + m_out)          # Hymba parallel fusion
     x = x + attn_out
+    if kind == "cross":
+        hx = rms_norm(x, p["ln_x"], cfg.norm_eps, cfg.norm_cast_early)
+        x_out, _ = attention(cfg, p["xattn"], hx, q_pos, enc_out=enc_out,
+                             rope=False)
+        x = x + x_out
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps, cfg.norm_cast_early)
-    return x + mlp(p["mlp"], h2, cfg.mlp), new_cache
+    if kind == "moe":
+        ff, aux = moe_apply(cfg, p["moe"], h2)
+    else:
+        ff, aux = mlp(p["mlp"], h2, cfg.mlp), None
+    return x + ff, new_cache, new_ssm, aux
 
 
 # ---------------------------------------------------------------------------
@@ -88,22 +125,36 @@ def _layer(stacked: dict, i: int) -> dict:
 
 
 def run_stack(cfg: ModelConfig, stacked, x, q_pos, windows, *,
-              causal: bool = True):
-    """Train/prefill pass over the L stacked layers."""
+              kind: str = "dense", enc_out=None, causal: bool = True):
+    """Train/prefill pass over the L stacked layers.  Returns (x, aux):
+    the layers' aux losses summed in float32 in layer order."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, w in enumerate(windows):
-        x, _ = block_apply(cfg, _layer(stacked, i), x, q_pos, w,
-                           causal=causal)
-    return x
+        x, _, _, a = block_apply(cfg, _layer(stacked, i), x, q_pos, w,
+                                 kind=kind, enc_out=enc_out, causal=causal)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def run_stack_decode(cfg: ModelConfig, stacked, x, q_pos, windows,
-                     caches: KVCache):
+                     caches: KVCache, *, kind: str = "dense",
+                     ssm_states=None, enc_out=None):
     """One-token decode across the L stacked layers; writes each layer's
-    slice of the stacked cache in place.  Returns (x, caches)."""
+    slice of the stacked cache in place.  Returns (x, caches), and for
+    the hybrid kind (x, caches, ssm_states) with the new Mamba states
+    stacked anew."""
+    new_ssm = []
     for i, w in enumerate(windows):
-        x, _ = block_apply(cfg, _layer(stacked, i), x, q_pos, w,
-                           cache=caches.layer(i))
-    return x, caches
+        sstate = None if ssm_states is None else _layer(ssm_states, i)
+        x, _, s, _ = block_apply(cfg, _layer(stacked, i), x, q_pos, w,
+                                 kind=kind, cache=caches.layer(i),
+                                 ssm_state=sstate, enc_out=enc_out)
+        new_ssm.append(s)
+    if ssm_states is None:
+        return x, caches
+    return x, caches, {k: torch.stack([s[k] for s in new_ssm])
+                       for k in ssm_states}
 
 
 # ---------------------------------------------------------------------------
@@ -164,6 +215,18 @@ def _positions(batch: int, seq: int, device):
                         device=device).expand(batch, seq)
 
 
+def _kv_caches(cfg: ModelConfig, batch_size: int, max_slots: int, n: int,
+               device) -> KVCache:
+    cd = dtype_of(cfg.kv_cache_dtype or cfg.compute_dtype)
+    return init_kv_cache(batch_size, max_slots, cfg.n_kv_heads, cfg.head_dim,
+                         cd, device, lead=(n,))
+
+
+def _lm_loss(logits, tokens, aux):
+    loss = softmax_cross_entropy(logits[:, :-1], tokens[:, 1:]) + aux
+    return loss, {"loss": loss, "aux": aux}
+
+
 # ---------------------------------------------------------------------------
 # DENSE (gemma2 / chatglm3 / llama3) and VLM (internvl2 backbone)
 # ---------------------------------------------------------------------------
@@ -179,7 +242,7 @@ def build_dense(cfg: ModelConfig, max_seq: int, device: torch.device):
     def init(seed: int):
         """Random params from a torch.Generator on ``device`` seeded with
         ``seed``, at the reference's scales (not its bits)."""
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = generator(device, seed)
         p = _init_common(gen, cfg, dtype)
         p["layers"] = init_block(gen, cfg, dtype, lead=(cfg.n_layers,))
         if is_vlm:
@@ -194,7 +257,7 @@ def build_dense(cfg: ModelConfig, max_seq: int, device: torch.device):
             patches = batch["patches"].to(cd) @ params["projector"].to(cd)
             x = torch.cat([patches, x], dim=1)
         q_pos = _positions(x.shape[0], x.shape[1], x.device)
-        x = run_stack(cfg, params["layers"], x, q_pos, windows)
+        x, _ = run_stack(cfg, params["layers"], x, q_pos, windows)
         return _unembed(params, cfg, x)
 
     def loss_fn(params, batch):
@@ -211,10 +274,8 @@ def build_dense(cfg: ModelConfig, max_seq: int, device: torch.device):
         return _public_logits(cfg, _forward(params, batch))
 
     def init_cache(batch_size: int, max_slots: int):
-        cd = dtype_of(cfg.kv_cache_dtype or cfg.compute_dtype)
-        return {"kv": init_kv_cache(batch_size, max_slots, cfg.n_kv_heads,
-                                    cfg.head_dim, cd, device,
-                                    lead=(cfg.n_layers,))}
+        return {"kv": _kv_caches(cfg, batch_size, max_slots, cfg.n_layers,
+                                 device)}
 
     def decode_step(params, cache, tok, pos):
         x = _embed_in(params, cfg, tok[:, None])
@@ -225,3 +286,204 @@ def build_dense(cfg: ModelConfig, max_seq: int, device: torch.device):
         return logits[:, 0], {"kv": new_kv}
 
     return init, loss_fn, prefill, init_cache, decode_step
+
+
+# ---------------------------------------------------------------------------
+# MOE (deepseek-moe-16b / kimi-k2): leading dense layer(s) + the MoE stack
+# ---------------------------------------------------------------------------
+
+
+def build_moe(cfg: ModelConfig, max_seq: int, device: torch.device):
+    """The five model functions of a moe config on ``device``: the
+    ``n_dense_layers`` leading dense blocks (FFN width ``dense_d_ff``,
+    params under ``"dense_layers"``) and the MoE blocks (``"layers"``).
+    ``max_seq`` is unused."""
+    dtype = dtype_of(cfg.param_dtype)
+    n_dense = cfg.n_dense_layers
+    n_moe = cfg.n_layers - n_dense
+    windows = layer_windows(cfg)[n_dense:]
+
+    def init(seed: int):
+        """Random params from a torch.Generator on ``device`` seeded with
+        ``seed``, at the reference's scales (not its bits)."""
+        gen = generator(device, seed)
+        p = _init_common(gen, cfg, dtype)
+        if n_dense:
+            p["dense_layers"] = init_block(gen, cfg, dtype,
+                                           d_ff=cfg.dense_d_ff,
+                                           lead=(n_dense,))
+        p["layers"] = init_block(gen, cfg, dtype, kind="moe", lead=(n_moe,))
+        return p
+
+    def _forward(params, batch):
+        tokens = batch["tokens"]
+        x = _embed_in(params, cfg, tokens)
+        q_pos = _positions(*tokens.shape, x.device)
+        aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
+        if n_dense:
+            x, aux0 = run_stack(cfg, params["dense_layers"], x, q_pos,
+                                [0] * n_dense)
+        x, aux = run_stack(cfg, params["layers"], x, q_pos, windows,
+                           kind="moe")
+        return _unembed(params, cfg, x), aux0 + aux
+
+    def loss_fn(params, batch):
+        logits, aux = _forward(params, batch)
+        return _lm_loss(logits, batch["tokens"], aux)
+
+    def prefill(params, batch):
+        return _public_logits(cfg, _forward(params, batch)[0])
+
+    def init_cache(batch_size: int, max_slots: int):
+        cache = {"kv": _kv_caches(cfg, batch_size, max_slots, n_moe, device)}
+        if n_dense:
+            cache["kv_dense"] = _kv_caches(cfg, batch_size, max_slots,
+                                           n_dense, device)
+        return cache
+
+    def decode_step(params, cache, tok, pos):
+        x = _embed_in(params, cfg, tok[:, None])
+        q_pos = pos[:, None].to(torch.int32)
+        new_cache = dict(cache)
+        if n_dense:
+            x, new_cache["kv_dense"] = run_stack_decode(
+                cfg, params["dense_layers"], x, q_pos, [0] * n_dense,
+                cache["kv_dense"])
+        x, new_cache["kv"] = run_stack_decode(cfg, params["layers"], x, q_pos,
+                                              windows, cache["kv"],
+                                              kind="moe")
+        logits = _public_logits(cfg, _unembed(params, cfg, x))
+        return logits[:, 0], new_cache
+
+    return init, loss_fn, prefill, init_cache, decode_step
+
+
+# ---------------------------------------------------------------------------
+# HYBRID (hymba: parallel attention + mamba heads)
+# ---------------------------------------------------------------------------
+
+
+def build_hybrid(cfg: ModelConfig, max_seq: int, device: torch.device):
+    """The five model functions of a hybrid config on ``device``; the
+    decode cache carries each layer's Mamba state (``"ssm"``) beside its
+    KV cache.  ``max_seq`` is unused."""
+    dtype = dtype_of(cfg.param_dtype)
+    windows = layer_windows(cfg)
+
+    def init(seed: int):
+        """Random params from a torch.Generator on ``device`` seeded with
+        ``seed``, at the reference's scales (not its bits)."""
+        gen = generator(device, seed)
+        p = _init_common(gen, cfg, dtype)
+        p["layers"] = init_block(gen, cfg, dtype, kind="hybrid",
+                                 lead=(cfg.n_layers,))
+        return p
+
+    def _forward(params, batch):
+        tokens = batch["tokens"]
+        x = _embed_in(params, cfg, tokens)
+        q_pos = _positions(*tokens.shape, x.device)
+        x, aux = run_stack(cfg, params["layers"], x, q_pos, windows,
+                           kind="hybrid")
+        return _unembed(params, cfg, x), aux
+
+    def loss_fn(params, batch):
+        logits, aux = _forward(params, batch)
+        return _lm_loss(logits, batch["tokens"], aux)
+
+    def prefill(params, batch):
+        return _public_logits(cfg, _forward(params, batch)[0])
+
+    def init_cache(batch_size: int, max_slots: int):
+        cd = dtype_of(cfg.kv_cache_dtype or cfg.compute_dtype)
+        return {"kv": _kv_caches(cfg, batch_size, max_slots, cfg.n_layers,
+                                 device),
+                "ssm": init_mamba_state(cfg, batch_size, cd, device,
+                                        lead=(cfg.n_layers,))}
+
+    def decode_step(params, cache, tok, pos):
+        x = _embed_in(params, cfg, tok[:, None])
+        q_pos = pos[:, None].to(torch.int32)
+        x, new_kv, new_ssm = run_stack_decode(
+            cfg, params["layers"], x, q_pos, windows, cache["kv"],
+            kind="hybrid", ssm_states=cache["ssm"])
+        logits = _public_logits(cfg, _unembed(params, cfg, x))
+        return logits[:, 0], {"kv": new_kv, "ssm": new_ssm}
+
+    return init, loss_fn, prefill, init_cache, decode_step
+
+
+# ---------------------------------------------------------------------------
+# AUDIO (whisper-tiny): stub-frontend encoder + cross-attending decoder
+# ---------------------------------------------------------------------------
+
+
+def build_audio(cfg: ModelConfig, max_seq: int, device: torch.device):
+    """The five model functions of an audio config on ``device``, and
+    ``encode(params, frames) -> enc_out``.  ``max_seq`` sizes the
+    decoder's learned position table."""
+    dtype = dtype_of(cfg.param_dtype)
+    dec_windows = layer_windows(cfg)
+
+    def init(seed: int):
+        """Random params from a torch.Generator on ``device`` seeded with
+        ``seed``, at the reference's scales (not its bits)."""
+        gen = generator(device, seed)
+        p = _init_common(gen, cfg, dtype)
+        p["enc_layers"] = init_block(gen, cfg, dtype,
+                                     lead=(cfg.n_enc_layers,))
+        p["enc_ln_f"] = init_rms_norm(cfg.d_model, dtype, device)
+        p["dec_layers"] = init_block(gen, cfg, dtype, kind="cross",
+                                     lead=(cfg.n_layers,))
+        p["pos_emb"] = init_normal(gen, (max_seq, cfg.d_model), 0.01, dtype)
+        return p
+
+    def encode(params, frames):
+        """Frame embeddings [B, F, d] -> encoder output [B, F, d]
+        (non-causal self-attention, sinusoidal positions)."""
+        cd = dtype_of(cfg.compute_dtype)
+        x = frames.to(cd)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, cd,
+                                     x.device)[None]
+        q_pos = _positions(x.shape[0], x.shape[1], x.device)
+        x, _ = run_stack(cfg, params["enc_layers"], x, q_pos,
+                         [0] * cfg.n_enc_layers, causal=False)
+        return rms_norm(x, params["enc_ln_f"], cfg.norm_eps)
+
+    def _decode_seq(params, enc_out, tokens):
+        x = _embed_in(params, cfg, tokens)
+        S = tokens.shape[1]
+        x = x + params["pos_emb"][:S].to(x.dtype)[None]
+        q_pos = _positions(*tokens.shape, x.device)
+        x, aux = run_stack(cfg, params["dec_layers"], x, q_pos, dec_windows,
+                           kind="cross", enc_out=enc_out)
+        return _unembed(params, cfg, x), aux
+
+    def loss_fn(params, batch):
+        enc_out = encode(params, batch["frames"])
+        logits, aux = _decode_seq(params, enc_out, batch["tokens"])
+        return _lm_loss(logits, batch["tokens"], aux)
+
+    def prefill(params, batch):
+        enc_out = encode(params, batch["frames"])
+        return _public_logits(cfg, _decode_seq(params, enc_out,
+                                               batch["tokens"])[0])
+
+    def init_cache(batch_size: int, max_slots: int):
+        return {"kv": _kv_caches(cfg, batch_size, max_slots, cfg.n_layers,
+                                 device),
+                "enc_out": torch.zeros(
+                    (batch_size, cfg.enc_frames, cfg.d_model),
+                    dtype=dtype_of(cfg.compute_dtype), device=device)}
+
+    def decode_step(params, cache, tok, pos):
+        x = _embed_in(params, cfg, tok[:, None])
+        x = x + params["pos_emb"][pos].to(x.dtype)[:, None, :]
+        q_pos = pos[:, None].to(torch.int32)
+        x, new_kv = run_stack_decode(cfg, params["dec_layers"], x, q_pos,
+                                     dec_windows, cache["kv"], kind="cross",
+                                     enc_out=cache["enc_out"])
+        logits = _public_logits(cfg, _unembed(params, cfg, x))
+        return logits[:, 0], {"kv": new_kv, "enc_out": cache["enc_out"]}
+
+    return init, loss_fn, prefill, init_cache, decode_step, encode

@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dtype_of, softmax_cross_entropy
+from repro_torch.models.layers import (dtype_of, generator,
+                                       softmax_cross_entropy)
 from repro_torch.models.ssm import (init_mlstm, init_mlstm_state, init_slstm,
                                     init_slstm_state, mlstm_seq, mlstm_step,
                                     slstm_seq, slstm_step)
@@ -39,7 +40,7 @@ def build_xlstm(cfg: ModelConfig, max_seq: int, device: torch.device):
     def init(seed: int):
         """Random params from a torch.Generator on ``device`` seeded with
         ``seed``, at the reference's scales (not its bits)."""
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = generator(device, seed)
         p = _init_common(gen, cfg, dtype)
         p["mlstm"] = init_mlstm(gen, cfg, dtype, lead=(G, n_m))
         p["slstm"] = init_slstm(gen, cfg, dtype, lead=(G,))

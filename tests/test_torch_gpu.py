@@ -1133,3 +1133,163 @@ def test_card_checkpoint_round_trip(cuda, tmp_path, moments):
     for a, b in zip(leaves(got) + leaves(gopt), leaves(params) + leaves(opt)):
         assert a.device.type == cuda.type and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the moe, hybrid and audio families on the card (phase 11's gates at
+# reduced width)
+# ---------------------------------------------------------------------------
+
+FAMILIES = {
+    # arch: knobs on top of reduced(): hymba deep enough for a windowed
+    # layer, whisper's frames long enough for K5 (S >= 128)
+    "deepseek-moe-16b": dict(),
+    "hymba-1.5b": dict(n_layers=4),
+    "whisper-tiny": dict(enc_frames=150),
+}
+
+
+def _family(arch, device, **knobs):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(arch).reduced(), **FAMILIES[arch],
+                              **knobs)
+    return build_model(cfg, 448, device=device)
+
+
+def _family_batch(cfg, device, B=2, S=256, seed=1):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": _on(device, rng.integers(0, cfg.vocab, (B, S)),
+                           torch.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = _on(device, rng.standard_normal(
+            (B, cfg.enc_frames, cfg.d_model)), torch.float32)
+    return batch
+
+
+def _k5_calls(monkeypatch):
+    from repro_torch.models import layers
+    calls, real = [], layers.kops.flash_attention
+
+    def counted(*args, **kw):
+        calls.append(kw.get("causal", True))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(layers.kops, "flash_attention", counted)
+    return calls
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILIES))
+def test_family_prefill_kernel_on_vs_off(cuda, monkeypatch, arch):
+    """float32: K5 on within 2e-4 of K5 off; K5 launched once per
+    self-attention layer (whisper: the encoder's non-causal, then the
+    decoder's causal, none for cross-attention)."""
+    on = _family(arch, cuda, use_flash_kernel=True)
+    off = _family(arch, cuda)
+    cfg = on.config
+    params = on.init(0)
+    batch = _family_batch(cfg, cuda)
+    calls = _k5_calls(monkeypatch)
+    before = LAUNCHES["flash_attention"]
+    got = on.prefill(params, batch)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + len(calls)
+    assert calls == [False] * cfg.n_enc_layers + [True] * cfg.n_layers
+    want = off.prefill(params, batch)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILIES))
+def test_family_decode_vs_prefill(cuda, arch):
+    """float32: 16 stepped positions (whisper: the encoder output pinned
+    into the cache; hymba: Mamba's recurrence) within 2e-2 of the K5
+    prefill (the MoE's reduced capacity drops nothing)."""
+    model = _family(arch, cuda, use_flash_kernel=True)
+    params = model.init(0)
+    batch = _family_batch(model.config, cuda)
+    full = model.prefill(params, batch)
+    cache = model.init_cache(2, 16)
+    if model.encode is not None:
+        cache["enc_out"] = model.encode(params, batch["frames"])
+    steps = []
+    for pos in range(16):
+        lg, cache = model.decode_step(
+            params, cache, batch["tokens"][:, pos],
+            torch.full((2,), pos, dtype=torch.int32, device=cuda))
+        steps.append(lg)
+    torch.testing.assert_close(torch.stack(steps, 1), full[:, :16],
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "whisper-tiny"])
+def test_family_bf16_prefill_near_float32(cuda, arch):
+    """bf16 compute: K5 on no farther from a float32 K5-off prefill of the
+    same params and inputs than 1.5x K5 off's distance."""
+    on = _family(arch, cuda, use_flash_kernel=True,
+                 compute_dtype="bfloat16")
+    off = _family(arch, cuda, compute_dtype="bfloat16")
+    params = on.init(0)
+    batch = _family_batch(on.config, cuda)
+    ref = _family(arch, cuda).prefill(params, batch)
+    d_on, d_off = (float((m.prefill(params, batch).float() - ref).abs().max())
+                   for m in (on, off))
+    assert d_on <= 1.5 * d_off
+
+
+@pytest.mark.parametrize("B,H,K,S,hd,causal,window", [
+    (4, 16, 16, 1024, 128, True, 0),     # deepseek-moe-16b
+    (4, 25, 5, 1024, 64, True, 1024),    # hymba-1.5b
+    (2, 6, 6, 1500, 64, False, 0),       # whisper-tiny's encoder
+    (1, 25, 5, 2048, 64, True, 1024),    # hymba's window biting
+])
+def test_flash_kernel_at_family_shapes(cuda, B, H, K, S, hd, causal, window):
+    """K5 in bf16 at the three families' serving shapes, in the model
+    layout the prefill hands it, within 2e-2 of its plain version."""
+    rng = np.random.default_rng(S + H)
+    q, k, v = (_on(cuda, rng.standard_normal((B, S, n, hd)), torch.bfloat16)
+               .transpose(1, 2) for n in (H, K, K))
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_moe_combine_is_deterministic_on_the_card(cuda):
+    """The combine sums each token's k pairs in a fixed order (no atomic
+    adds): two bf16 runs give the same bits."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.layers import generator
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              compute_dtype="bfloat16", n_experts=16,
+                              n_shared_experts=1, d_model=512, d_expert=256)
+    p = moe.init_moe(generator(cuda, 0), cfg, torch.float32)
+    x = _on(cuda, np.random.default_rng(3).standard_normal((4, 512, 512)),
+            torch.bfloat16)
+    a, aux_a = moe.moe_apply(cfg, p, x)
+    b, aux_b = moe.moe_apply(cfg, p, x)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
+def test_sched_launch_six_jobs_card_equals_cpu(cuda):
+    """The launcher with every family of its pool (6 jobs, 4 GPUs on 2
+    servers, 2 steps): the card's schedule and simulated run equal the
+    CPU's, every job's losses finite."""
+    from repro_torch.launch import sched_launch
+    argv = ["--devices", "4", "--servers", "2", "--jobs", "6", "--steps",
+            "2"]
+    card = sched_launch.main(argv + ["--device", "cuda"])
+    host = sched_launch.main(argv + ["--device", "cpu"])
+    placed = [[(int(j), [int(g) for g in ids])
+               for j, ids in out["schedule"].assignment]
+              for out in (card, host)]
+    assert placed[0] == placed[1]
+    for f in ("start", "finish", "makespan", "avg_jct"):
+        assert np.array_equal(getattr(card["sim"], f),
+                              getattr(host["sim"], f))
+    assert all(np.isfinite(v).all() for v in card["losses"].values())

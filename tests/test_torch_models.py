@@ -17,7 +17,13 @@ function, and numpy-seeded tokens go through both:
   * the greedy tokens of ``repro_torch.launch.serve``'s loop against the
     reference serve loop's, equal;
   * in bf16 compute, ``prefill`` (K5 off and on) no farther from the
-    reference's bf16 prefill than that is from its float32 prefill.
+    reference's bf16 prefill than that is from its float32 prefill;
+  * every config at its published width and depth, shapes only: the
+    port's param tree, built on torch's ``meta`` device, has the leaf
+    paths, shapes and dtypes of the reference's ``jax.eval_shape``.
+
+The moe, hybrid and audio families have files of their own
+(``tests/test_torch_{moe,hybrid,audio}.py``).
 """
 import dataclasses
 
@@ -235,11 +241,24 @@ def test_serve_cli_on_cpu(capsys):
     assert res["tokens"].shape == (4, 4)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "hymba-1.5b",
-                                  "whisper-tiny"])
-def test_build_model_raises_for_unported_family(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(configs.get_config(arch).reduced(), device="cpu")
+def _shape_tree(tree):
+    """Leaf path -> (shape, dtype name), for torch and JAX leaves alike."""
+    return {k: _shape_tree(v) if isinstance(v, dict) else
+            (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", sorted(REF_ARCHS))
+def test_full_width_param_tree_matches_reference(arch):
+    """Every family at its published width and depth, shapes only: the
+    port's init on torch's meta device (no storage, no draws) has the
+    reference's leaf paths, shapes and dtypes from ``jax.eval_shape``."""
+    ref = ref_build_model(REF_ARCHS[arch], max_seq=448)
+    want = jax.eval_shape(ref.init, jax.random.PRNGKey(0))
+    model = build_model(configs.get_config(arch), 448, device="meta")
+    got = model.init(0)
+    assert all(t.device.type == "meta" for t in jax.tree.leaves(got))
+    assert _shape_tree(got) == _shape_tree(want)
 
 
 def test_build_model_defaults_to_the_card():

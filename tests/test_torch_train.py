@@ -20,10 +20,12 @@ Both packages get the same numpy-seeded inputs in this one process:
   port bitwise (bfloat16 leaves are raw ``|V2`` records); the same key
   set; the port's own bfloat16 round trip; shape-mismatch and missing-key
   errors.
-* **Steps** on reduced llama3.2-1b, xlstm-350m and internvl2-1b in
-  float32, params carried with ``params_from_reference`` and AdamW state
-  with ``opt_from_reference``.  One step from a state the reference
-  trained for three steps: loss within 1e-3 and params within 2e-4 (the
+* **Steps** on reduced llama3.2-1b, xlstm-350m and internvl2-1b (and,
+  for the one-step and gradient checks, deepseek-moe-16b, hymba-1.5b and
+  whisper-tiny) in float32, params carried with
+  ``params_from_reference`` and AdamW state with ``opt_from_reference``.
+  One step from a state the reference trained for three steps: loss
+  within 1e-3 and params within 2e-4 (the
   bounds of the reference's own ``test_grad_accumulation_matches_full_
   batch``; measured: loss 2.4e-6, params 6.1e-6).  From a fresh state the
   first AdamW step is a sign step (m/sqrt(v) = g/|g|), so a gradient
@@ -43,7 +45,8 @@ Both packages get the same numpy-seeded inputs in this one process:
   writing a checkpoint that the reference's ``ckpt.load`` reads bitwise;
   ``sched_launch``'s schedule and simulated makespan equal to the
   reference's ``get_policy`` plus ``simulate`` (the reference's own
-  launcher cannot execute its RAR step on this host).
+  launcher cannot execute its RAR step on this host), with 3 jobs and
+  with 6, where every family of its pool trains.
 
 No assertion here depends on a "loss went down" outcome of hash-seeded
 data; losses are held finite.
@@ -89,6 +92,7 @@ from repro_torch.optim import adamw
 from repro_torch.tree import leaves
 
 ARCHS = ("llama3.2-1b", "xlstm-350m", "internvl2-1b")
+FAMILY_ARCHS = ("deepseek-moe-16b", "hymba-1.5b", "whisper-tiny")
 LOSS_TOL, PARAM_TOL = 1e-3, 2e-4          # test_substrate.py's bounds
 GRAD_REL_TOL = 1e-3
 SEQ = 32
@@ -375,6 +379,10 @@ def _batches(cfg, rng, B):
         pa = rng.standard_normal((B, cfg.n_patches, cfg.d_model)
                                  ).astype(np.float32)
         ref["patches"], port["patches"] = jnp.asarray(pa), torch.tensor(pa)
+    if cfg.family == "audio":
+        fr = rng.standard_normal((B, cfg.enc_frames, cfg.d_model)
+                                 ).astype(np.float32)
+        ref["frames"], port["frames"] = jnp.asarray(fr), torch.tensor(fr)
     return ref, port
 
 
@@ -417,7 +425,7 @@ def trained():
     return get
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILY_ARCHS)
 def test_train_step_matches_reference_from_a_trained_state(trained, arch):
     case = trained(arch)
     new_p, new_o, m = case["port_warm"]
@@ -428,7 +436,7 @@ def test_train_step_matches_reference_from_a_trained_state(trained, arch):
     assert int(new_o["step"]) == 4
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILY_ARCHS)
 def test_gradients_match_reference(trained, arch):
     case = trained(arch)
     rp, pp = case["fresh"]
@@ -683,10 +691,25 @@ def test_sched_launch_schedule_equals_reference(policy, capsys):
     assert "all 3 jobs executed on their assigned slices" in out
 
 
-def test_sched_launch_stops_at_a_family_not_ported():
-    with pytest.raises(SystemExit, match="item 9"):
-        sched_launch.main(["--devices", "4", "--servers", "2", "--jobs", "4",
-                           "--steps", "1", "--device", "cpu"])
+def test_sched_launch_runs_every_family_of_its_pool(capsys):
+    """Six jobs: the pool's whisper-tiny, hymba-1.5b and deepseek-moe-16b
+    train too (reduced), and the schedule is the reference's."""
+    res = sched_launch.main(["--devices", "4", "--servers", "2", "--jobs",
+                             "6", "--steps", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    sched, sim = _reference_schedule(4, 2, 6, "sjf-bco", 0)
+    got = [(int(j), [int(g) for g in ids])
+           for j, ids in res["schedule"].assignment]
+    assert got == [(int(j), [int(g) for g in ids])
+                   for j, ids in sched.assignment]
+    for f in ("start", "finish", "makespan", "avg_jct"):
+        assert np.array_equal(getattr(res["sim"], f), getattr(sim, f))
+    assert sorted(res["losses"]) == list(range(6))
+    assert all(len(ls) == 2 and all(math.isfinite(x) for x in ls)
+               for ls in res["losses"].values())
+    for arch in sched_launch.ARCH_POOL:
+        assert f"({arch:18s} w=" in out
+    assert "all 6 jobs executed on their assigned slices" in out
 
 
 def test_launchers_default_to_the_card():
