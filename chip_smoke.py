@@ -184,6 +184,24 @@ per-launch floor (one in-place add on a one-element tensor):
      28, 32 and 4 non-causal + 4 causal times a prefill (never for
      cross-attention; 4 per whisper encoder run alone).
 
+ 12. dry-run -- the production-mesh dry-run (``launch/dryrun.py``): (a)
+     full-width pairs as DTensor steps over a fake process group on
+     fake CUDA tensors (llama3.2-1b train_4k / prefill_32k / decode_32k,
+     deepseek-moe-16b train_4k, hymba-1.5b long_500k, whisper-tiny
+     train_4k, xlstm-350m decode_32k and internvl2-1b prefill_32k naive
+     and optimized on 16x16; llama3-405b train_4k on 2x16x16), each
+     row's per-device GiB against 80, FLOPs, bytes, collective and DCN
+     bytes, bottleneck and seconds printed; every pair must run and
+     count FLOPs, bytes and collective bytes, llama3-405b must send DCN
+     bytes, naive internvl2-1b must hold every param byte on a device and
+     the optimized run at most 1/16 of them.  (b) llama3.2-1b on one real
+     rank (nccl, world size 1, a 1x1 mesh) at a batch that fits 80 GB,
+     on fake and on real CUDA tensors: the FLOPs and collective counts
+     equal, the fake peak above the arguments within 10% of the card's
+     ``max_memory_allocated`` above them; the measured wall and the
+     roofline share max(t_compute, t_memory) / wall printed.  No kernel
+     launches (the models run with their kernel branches off).
+
 float32 matrix products run in full float32 throughout
 (``torch.backends.cuda.matmul.allow_tf32 = False``, set in ``main``): the
 float32 gates compare K5 and K8 with cuBLAS products.
@@ -2694,6 +2712,123 @@ def families_phase(torch, np, kernels, totals: dict, dev) -> None:
           flush=True)
 
 
+# Phase 12 (a): full-width dry-run pairs on fake CUDA tensors, as
+# (arch, shape, multi_pod).
+DRYRUN_PAIRS = (("llama3.2-1b", "train_4k", False),
+                ("llama3.2-1b", "prefill_32k", False),
+                ("llama3.2-1b", "decode_32k", False),
+                ("deepseek-moe-16b", "train_4k", False),
+                ("hymba-1.5b", "long_500k", False),
+                ("whisper-tiny", "train_4k", False),
+                ("xlstm-350m", "decode_32k", False),
+                ("llama3-405b", "train_4k", True))
+# Phase 12 (b): llama3.2-1b on one real rank, (shape, batch) that fit in
+# 80 GB.
+ONE_RANK = (("train_4k", 1), ("prefill_32k", 1), ("decode_32k", 16))
+
+
+def dryrun_row(tag: str, row: dict) -> None:
+    print(f"dryrun {tag} {row['arch']} x {row['shape']} x {row['mesh']}: "
+          f"mem/device {row['hbm_peak_bytes'] / 2**30:.6f} GiB of 80 "
+          f"(inputs {row['args_bytes'] / 2**30:.6f}), flops/device "
+          f"{row['hlo_flops']:.6e}, bytes/device {row['hlo_bytes']:.6e}, "
+          f"collective {row['collective_bytes']:.6e} B "
+          f"{row['collective_counts']}, dcn {row['dcn_bytes']:.6e} B; "
+          f"t_compute {row['t_compute_s']:.6e} s, t_memory "
+          f"{row['t_memory_s']:.6e} s, t_collective "
+          f"{row['t_collective_s']:.6e} s, bottleneck {row['bottleneck']}; "
+          f"run {row['run_s']:.3f} s", flush=True)
+
+
+def dryrun_phase(torch, kernels) -> None:
+    """Phase 12: the production-mesh dry-run on fake CUDA tensors at full
+    width, then llama3.2-1b on one real rank, fake against real."""
+    import gc
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    for arch, shape, multi_pod in DRYRUN_PAIRS:
+        row = dryrun.run_pair(arch, shape, multi_pod=multi_pod,
+                              device="cuda", verbose=False)
+        dryrun_row("(a)", row)
+        if not (row["hlo_flops"] > 0 and row["hlo_bytes"] > 0):
+            fail(f"dry-run {arch} x {shape}: no FLOPs or bytes counted")
+        if row["collective_bytes"] <= 0:
+            fail(f"dry-run {arch} x {shape}: a sharded step sent nothing")
+        if arch == "llama3-405b" and row["dcn_bytes"] <= 0:
+            fail("dry-run llama3-405b x train_4k: no bytes crossed pods")
+    whole = sum(t.numel() * t.element_size() for t in leaves(
+        build_model(get_config("internvl2-1b"), device="meta").init(0)))
+    os.environ["REPRO_NAIVE_SHARDING"] = "1"
+    try:
+        naive = dryrun.run_pair("internvl2-1b", "prefill_32k",
+                                device="cuda", verbose=False)
+    finally:
+        del os.environ["REPRO_NAIVE_SHARDING"]
+    dryrun_row("(a) naive", naive)
+    opt = dryrun.run_pair("internvl2-1b", "prefill_32k", device="cuda",
+                          verbose=False)
+    dryrun_row("(a) optimized", opt)
+    print(f"dryrun internvl2-1b params: {whole} B whole, naive "
+          f"{naive['param_bytes']:.0f} B, optimized {opt['param_bytes']:.0f}"
+          f" B a device", flush=True)
+    if naive["param_bytes"] != whole:
+        fail("naive internvl2-1b does not hold every param byte a device")
+    if opt["param_bytes"] > whole / 16:
+        fail("optimized internvl2-1b holds more than 1/16 of the params")
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        fail(f"the dry-run launched kernels: {counts}")
+    dist.destroy_process_group()
+
+    # (b) one real rank: fake against real at the same batch
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device="cuda")
+        for shape, batch in ONE_RANK:
+            fake = dryrun.dry_run("llama3.2-1b", shape, mesh,
+                                  batch_override=batch)
+            dryrun_row(f"(b) fake B={batch}", fake)
+            gc.collect()
+            torch.cuda.empty_cache()
+            real = dryrun.dry_run("llama3.2-1b", shape, mesh,
+                                  batch_override=batch, fake=False)
+            dryrun_row(f"(b) real B={batch}", real)
+            gc.collect()
+            torch.cuda.empty_cache()
+            f_above = fake["hbm_peak_bytes"] - fake["args_bytes"]
+            r_above = real["hbm_peak_bytes"] - real["args_bytes"]
+            share = max(real["t_compute_s"], real["t_memory_s"]) \
+                / real["wall_s"]
+            print(f"dryrun (b) llama3.2-1b x {shape} B={batch}: wall "
+                  f"{real['wall_s']:.6f} s, roofline share {share:.6f} "
+                  f"(max(t_compute, t_memory) / wall); peak above the "
+                  f"inputs fake {f_above / 2**30:.6f} GiB, card "
+                  f"{r_above / 2**30:.6f} GiB", flush=True)
+            if fake["hlo_flops"] != real["hlo_flops"]:
+                fail(f"one rank {shape}: fake {fake['hlo_flops']} FLOPs, "
+                     f"real {real['hlo_flops']}")
+            if fake["collective_counts"] != real["collective_counts"]:
+                fail(f"one rank {shape}: collectives differ")
+            if abs(f_above - r_above) > 0.1 * r_above:
+                fail(f"one rank {shape}: fake peak {f_above} B above the "
+                     f"inputs, card {r_above} B")
+    finally:
+        dist.destroy_process_group()
+    print(f"dryrun phase {time.perf_counter() - t_phase:.6f} s wall",
+          flush=True)
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -2752,6 +2887,7 @@ def main() -> None:
     service_phase(torch, np, rt, kernels, totals)
     training_phase(torch, np, kernels, totals, dev)
     families_phase(torch, np, kernels, totals, dev)
+    dryrun_phase(torch, kernels)
     for row in rows:
         row["launches"] = totals[row["name"]]
         if row["launches"] <= 0:

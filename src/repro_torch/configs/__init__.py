@@ -2,11 +2,16 @@
 
 The port's copy of ``repro/configs/__init__.py`` (data only).
 ``get_config(arch)`` returns the exact assigned ModelConfig;
+``input_specs(cfg, shape)`` returns ``meta``-device stand-ins (the
+counterpart of ``jax.ShapeDtypeStruct``) for every model input of that
+(arch, shape) pair: allocation-free, with the reference's keys, shapes and
+dtypes (the dry-run builds its inputs from these);
 ``supported_shapes(cfg)`` applies the DESIGN.md skip rules (long_500k only
-for sub-quadratic-decode families).  ``input_specs`` (the dry-run's
-allocation-free input stand-ins) waits for the launch/dry-run slice.
+for sub-quadratic-decode families).
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
 
@@ -56,5 +61,31 @@ def cache_slots(cfg: ModelConfig, shape: InputShape) -> int:
     return shape.seq_len
 
 
+def input_specs(cfg: ModelConfig, shape: InputShape, *,
+                batch_override: int | None = None, device="meta") -> dict:
+    """Stand-ins for the model inputs of (cfg, shape), on ``device``
+    (``meta`` by default: shapes and dtypes only, nothing allocated).
+
+    train/prefill -> the batch dict consumed by loss_fn/prefill;
+    decode       -> {"tok": [B], "pos": [B]} (the cache is built separately
+    via Model.init_cache)."""
+    B = batch_override or shape.global_batch
+    S = shape.seq_len
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device=device)
+
+    f32, i32 = torch.float32, torch.int32
+    if shape.is_decode:
+        return {"tok": sds((B,), i32), "pos": sds((B,), i32)}
+    if cfg.family == "vlm":
+        return {"tokens": sds((B, S - cfg.n_patches), i32),
+                "patches": sds((B, cfg.n_patches, cfg.d_model), f32)}
+    if cfg.family == "audio":
+        return {"frames": sds((B, cfg.enc_frames, cfg.d_model), f32),
+                "tokens": sds((B, S), i32)}
+    return {"tokens": sds((B, S), i32)}
+
+
 __all__ = ["ARCHS", "LONG_CONTEXT_OK", "get_config", "supported_shapes",
-           "cache_slots", "INPUT_SHAPES"]
+           "cache_slots", "input_specs", "INPUT_SHAPES"]

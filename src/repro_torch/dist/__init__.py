@@ -3,6 +3,9 @@
 * :mod:`repro_torch.dist.rar`   -- the ring collectives on a worker axis
   (the Share-Reduce / Share-Only phases of Fig. 1) + the §3
   exchange-volume formula;
+* :mod:`repro_torch.dist.sharding` -- mesh/placement rules for the
+  production dry-run (params/batch/cache specs as DTensor placements,
+  consumed by ``launch/dryrun.py``);
 * :mod:`repro_torch.dist.steps` -- train/serve step factories, including
   the explicit RAR data-parallel step the scheduler launcher executes on
   each placement.

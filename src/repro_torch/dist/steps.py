@@ -29,6 +29,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.dist.rar import ring_all_reduce
+from repro_torch.models.layers import BATCH_AXES, shard_hint
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig
@@ -207,7 +208,9 @@ def make_serve_step(model: Model) -> Callable:
     def serve(params, cache, tok, pos):
         """Decode one token per sequence and write it into the cache."""
         logits, new_cache = model.decode_step(params, cache, tok, pos)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        # each row's whole vocabulary on one device (a no-op off a mesh)
+        next_tok = torch.argmax(shard_hint(logits, BATCH_AXES),
+                                dim=-1).to(torch.int32)
         return next_tok, logits, new_cache
 
     return serve

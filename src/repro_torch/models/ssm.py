@@ -21,19 +21,27 @@ The reference's dtypes are kept: q/k/v enter the parallel form in fp32,
 the gate weights ``w_if``/``if_bias`` and every recurrent state are fp32,
 and Mamba's ``dt_bias``/``A_log`` are fp32.  Where JAX promotes a
 compute-dtype activation against a float32 weight, the port casts the
-activation up (``torch.einsum`` refuses mixed dtypes).  One card has no
-mesh, so the reference's ``shard_hint`` is left out.
+activation up (``torch.einsum`` refuses mixed dtypes).  The mLSTM's query
+chunks carry the reference's ``shard_hint`` (the identity off a mesh); on
+DTensors the mLSTM's parallel form and the sLSTM's loop run on each
+shard's local tensors (:func:`_mlstm_sharded`, :func:`slstm_seq`).
 """
 from __future__ import annotations
 
+import functools
 import math
+import os
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import init_normal, init_uniform, rms_norm
+from repro_torch.models.layers import (BATCH_AXES, _hint_placements,
+                                       init_normal, init_uniform, rms_norm,
+                                       shard_hint, zero_pad)
 
 # ---------------------------------------------------------------------------
 # associative scan
@@ -153,7 +161,7 @@ def mamba_seq(cfg: ModelConfig, p, x):
     uz = x @ p["w_in"].to(cd)
     u, z = uz[..., :inner], uz[..., inner:]
     # depthwise causal conv over the sequence axis, the taps summed in order
-    upad = F.pad(u, (0, 0, _CONV_K - 1, 0))
+    upad = zero_pad(u, (0, 0, _CONV_K - 1, 0))
     u = sum(upad[:, i:i + S] * p["w_conv"][i].to(cd)
             for i in range(_CONV_K))
     u = _silu(u).reshape(B, S, Hs, P)
@@ -236,12 +244,70 @@ def _mlstm_qkvif(cfg: ModelConfig, p, xe):
     return q, k, v / math.sqrt(hd), i_pre, f_pre
 
 
+def _cum_log_forget(f_pre: torch.Tensor) -> torch.Tensor:
+    """The cumulative log-forget gate over the sequence, f_pre [B,S,H].
+    On a DTensor it runs on each shard's local tensors with the sequence
+    whole (``local_map``): DTensor has no rule for logsigmoid's backward,
+    nor on some torch versions for the flip in cumsum's."""
+    if not isinstance(f_pre, DTensor):
+        return torch.cumsum(F.logsigmoid(f_pre), dim=1)
+    pl = tuple(Replicate() if p.is_partial() or p == Shard(1) else p
+               for p in f_pre.placements)
+    return local_map(lambda f: torch.cumsum(F.logsigmoid(f), dim=1),
+                     out_placements=(pl,), in_placements=(pl,),
+                     device_mesh=f_pre.device_mesh,
+                     redistribute_inputs=True)(f_pre)
+
+
 def _mlstm_parallel_block(q_c, F_c, k, v, Fcum, i_pre, t0: int):
     """One query chunk of the mLSTM parallel form (fp32 in/out).
 
     q_c: [B,c,H,hd] queries for rows [t0, t0+c); F_c their cumulative
     log-forget; k/v/Fcum/i_pre: full-sequence tensors.  Only the [c, S]
-    decay slab materialises."""
+    decay slab materialises.  Query rows context-parallelise over the
+    "model" axis on a mesh (4 mLSTM heads never tile it)."""
+    if not os.environ.get("REPRO_NAIVE_SHARDING"):
+        q_c = shard_hint(q_c, BATCH_AXES, "model", None, None)
+        F_c = shard_hint(F_c, BATCH_AXES, "model", None)
+    return _mlstm_block_local(q_c, F_c, k, v, Fcum, i_pre, t0)
+
+
+def _mlstm_sharded(q_r, F_r, k, v, Fcum, i_pre, t0: int, chunk: int, *,
+                   naive: bool):
+    """Query rows [t0, t0 + n) of the parallel form on DTensors: each
+    device takes its batch rows and (unless naive) its share of the query
+    rows over ``"model"`` (the row split of the reference's
+    ``_mlstm_parallel_block`` hints), against the full sequence of
+    k/v/Fcum/i_pre, ``chunk`` rows at a time on local tensors
+    (``local_map``).  DTensor's own propagation through the block's
+    einsums does not finish (strided placements)."""
+    mesh = q_r.device_mesh
+    rows_ax = (BATCH_AXES,) if naive else (BATCH_AXES, "model")
+    q_pl = _hint_placements(q_r.shape, mesh, rows_ax)
+    F_pl = _hint_placements(F_r.shape, mesh, rows_ax)
+    full4 = _hint_placements(k.shape, mesh, (BATCH_AXES,))
+    full3 = _hint_placements(Fcum.shape, mesh, (BATCH_AXES,))
+    split = Shard(1) in q_pl
+
+    def local(q_r, F_r, k, v, Fcum, i_pre):
+        n = q_r.shape[1]
+        off = t0 + (mesh.get_local_rank("model") * n if split else 0)
+        c = chunk if n % chunk == 0 else n
+        return torch.cat([_mlstm_block_local(
+            q_r[:, t:t + c], F_r[:, t:t + c], k, v, Fcum, i_pre, off + t)
+            for t in range(0, n, c)], dim=1)
+
+    # the query rows are gathered back, as in layers._sdpa_sharded
+    out_pl = tuple(Replicate() if p == Shard(1) else p for p in q_pl)
+    out = local_map(local, out_placements=(q_pl,),
+                    in_placements=(q_pl, F_pl, full4, full4, full3, full3),
+                    device_mesh=mesh, redistribute_inputs=True)(
+        q_r, F_r, k, v, Fcum, i_pre)
+    return out.redistribute(mesh, out_pl)
+
+
+def _mlstm_block_local(q_c, F_c, k, v, Fcum, i_pre, t0: int):
+    """The block's arithmetic on plain tensors (rows [t0, t0 + c))."""
     S = k.shape[1]
     # D[b,h,t,s] = F_t - F_s + i_s  for s <= t   (log decay matrix)
     D = F_c.transpose(1, 2)[..., :, None] \
@@ -267,10 +333,13 @@ def mlstm_seq(cfg: ModelConfig, p, x):
               @ p["w_up"].to(cd)).chunk(2, dim=-1)
     q, k, v, i_pre, f_pre = _mlstm_qkvif(cfg, p, xe)
     q, k, v = q.float(), k.float(), v.float()
-    Fcum = torch.cumsum(F.logsigmoid(f_pre), dim=1)           # [B,S,H]
+    Fcum = _cum_log_forget(f_pre)                             # [B,S,H]
 
     if cfg.use_flash_kernel:
         y = kops.mlstm(q, k, v, Fcum, i_pre)
+    elif isinstance(q, DTensor):     # one local_map for all the chunks
+        y = _mlstm_sharded(q, Fcum, k, v, Fcum, i_pre, 0, cfg.q_chunk or S,
+                           naive=bool(os.environ.get("REPRO_NAIVE_SHARDING")))
     else:
         chunk = cfg.q_chunk if (cfg.q_chunk and S > cfg.q_chunk
                                 and S % cfg.q_chunk == 0) else S
@@ -376,16 +445,37 @@ def _slstm_out(p, x, h):
     return x + y
 
 
-def slstm_seq(cfg: ModelConfig, p, x):
-    """Sequential pass over time.  x: [B,S,d] -> [B,S,d]."""
-    B, S, d = x.shape
-    gx = rms_norm(x, p["norm"], cfg.norm_eps) @ p["w_x"].to(x.dtype)
-    state = init_slstm_state(cfg, B, x.device)
+def _slstm_loop(cfg: ModelConfig, r_h, gx):
+    """The cell over time on plain tensors.  gx: [B,S,4d] -> h [B,S,H,dh]."""
+    B, S = gx.shape[:2]
+    state = init_slstm_state(cfg, B, gx.device)
     hs = []
     for t in range(S):
-        state = _slstm_cell(cfg, p, state, gx[:, t])
+        state = _slstm_cell(cfg, {"r_h": r_h}, state, gx[:, t])
         hs.append(state["h"])
-    return _slstm_out(p, x, torch.stack(hs, dim=1))
+    return torch.stack(hs, dim=1)
+
+
+def slstm_seq(cfg: ModelConfig, p, x):
+    """Sequential pass over time.  x: [B,S,d] -> [B,S,d].
+
+    On a DTensor the loop runs on each shard's local tensors under
+    ``local_map``, after one redistribute of its inputs: gx keeps its
+    batch shards and gathers every other dim, r_h is gathered whole (a
+    dozen ops a step through sharding propagation would never finish at
+    S = 4096)."""
+    gx = rms_norm(x, p["norm"], cfg.norm_eps) @ p["w_x"].to(x.dtype)
+    if isinstance(gx, DTensor):
+        rows = tuple(pl if pl == Shard(0) else Replicate()
+                     for pl in gx.placements)
+        whole = (Replicate(),) * len(rows)
+        loop = local_map(functools.partial(_slstm_loop, cfg),
+                         out_placements=(rows,), in_placements=(whole, rows),
+                         device_mesh=gx.device_mesh, redistribute_inputs=True)
+        hs = loop(p["r_h"], gx)
+    else:
+        hs = _slstm_loop(cfg, p["r_h"], gx)
+    return _slstm_out(p, x, hs)
 
 
 def slstm_step(cfg: ModelConfig, p, state, x_t):

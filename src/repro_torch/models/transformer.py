@@ -15,22 +15,25 @@ same functional API as the reference:
 Parameters keep the reference's names and its stacked layout: every leaf
 under ``"layers"`` carries a leading ``[L]`` dim.  The reference scans
 over that dim; the port runs a Python loop over it, so each layer's window
-is a Python int.  ``build_audio`` also returns ``encode(params, frames)``.
+is a Python int.  ``cfg.remat`` checkpoints each layer of a train pass, as
+the reference's ``jax.checkpoint`` does.  ``build_audio`` also returns ``encode(params, frames)``.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
-import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (KVCache, attention, dtype_of,
-                                       generator, init_attn, init_embedding,
+from repro_torch.models.layers import (BATCH_AXES, KVCache, attention,
+                                       dtype_of, embed, generator,
+                                       init_attn, init_embedding,
                                        init_kv_cache, init_mlp, init_normal,
                                        init_rms_norm, mlp, rms_norm,
-                                       sinusoidal_positions,
-                                       softmax_cross_entropy)
+                                       shard_hint, sinusoidal_positions,
+                                       softmax_cross_entropy, zero_pad)
 from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.ssm import (init_mamba, init_mamba_state, mamba_seq,
                                     mamba_step)
@@ -124,14 +127,26 @@ def _layer(stacked: dict, i: int) -> dict:
             for k, v in stacked.items()}
 
 
+def maybe_remat(fn, cfg: ModelConfig, x: torch.Tensor):
+    """``fn`` under activation checkpointing when ``cfg.remat`` and
+    autograd records x (the reference's ``jax.checkpoint`` of each scanned
+    layer): the backward recomputes the layer from its input instead of
+    keeping its activations.  Bitwise the same gradients."""
+    if not (cfg.remat and torch.is_grad_enabled() and x.requires_grad):
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False)
+
+
 def run_stack(cfg: ModelConfig, stacked, x, q_pos, windows, *,
               kind: str = "dense", enc_out=None, causal: bool = True):
     """Train/prefill pass over the L stacked layers.  Returns (x, aux):
     the layers' aux losses summed in float32 in layer order."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = maybe_remat(block_apply, cfg, x)
     for i, w in enumerate(windows):
-        x, _, _, a = block_apply(cfg, _layer(stacked, i), x, q_pos, w,
-                                 kind=kind, enc_out=enc_out, causal=causal)
+        x, _, _, a = block(cfg, _layer(stacked, i), x, q_pos, w,
+                           kind=kind, enc_out=enc_out, causal=causal)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -164,13 +179,11 @@ def run_stack_decode(cfg: ModelConfig, stacked, x, q_pos, windows,
 
 def _embed_in(params, cfg, tokens):
     cd = dtype_of(cfg.compute_dtype)
-    # F.embedding, not indexing: its backward sums each row's gradients in
-    # a fixed order (indexing's accumulating backward does not on the CPU)
-    x = F.embedding(tokens, params["embed"]).to(cd)
+    x = embed(params["embed"], tokens).to(cd)
     if cfg.name.startswith("gemma2"):                   # gemma2 embeds scaled
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32
                              ).to(cd)
-    return x
+    return shard_hint(x, BATCH_AXES, None, None)
 
 
 def _padded_vocab(cfg) -> int:
@@ -180,20 +193,26 @@ def _padded_vocab(cfg) -> int:
 def _unembed(params, cfg, x):
     """Project to the (padded) vocabulary: [..., Vp] with the padded tail
     pinned to -1e30 (invisible to softmax/argmax); callers on the public
-    API slice back to cfg.vocab via _public_logits."""
+    API slice back to cfg.vocab via _public_logits.  Padding to a multiple
+    of 256 keeps the logits slab model-axis shardable for the odd-sized
+    vocabs (whisper 51865, internvl 151655)."""
     cd = x.dtype
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     table = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     V, Vp = cfg.vocab, _padded_vocab(cfg)
     if Vp != V:
-        table = F.pad(table, (0, Vp - V))
+        table = zero_pad(table, (0, Vp - V))
     logits = x @ table.to(cd)
+    # keep the [B, S, V] slab batch- AND vocab-sharded on a mesh: at
+    # 128k-256k vocabs an unsharded logits tensor alone would overflow HBM
+    logits = shard_hint(logits, BATCH_AXES, None, "model")
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(
             logits.float() / cfg.final_softcap)
     if Vp != V:
-        logits[..., V:] = -1e30
-    return logits
+        logits.masked_fill_(torch.arange(Vp, device=logits.device) >= V,
+                            -1e30)
+    return shard_hint(logits, BATCH_AXES, None, "model")
 
 
 def _public_logits(cfg, logits):
@@ -478,7 +497,7 @@ def build_audio(cfg: ModelConfig, max_seq: int, device: torch.device):
 
     def decode_step(params, cache, tok, pos):
         x = _embed_in(params, cfg, tok[:, None])
-        x = x + params["pos_emb"][pos].to(x.dtype)[:, None, :]
+        x = x + embed(params["pos_emb"], pos).to(x.dtype)[:, None, :]
         q_pos = pos[:, None].to(torch.int32)
         x, new_kv = run_stack_decode(cfg, params["dec_layers"], x, q_pos,
                                      dec_windows, cache["kv"], kind="cross",

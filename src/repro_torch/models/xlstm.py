@@ -16,16 +16,17 @@ Prefill runs the mLSTM parallel form, through the K6 kernel when
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (dtype_of, generator,
+from repro_torch.models.layers import (dtype_of, embed, generator,
                                        softmax_cross_entropy)
 from repro_torch.models.ssm import (init_mlstm, init_mlstm_state, init_slstm,
                                     init_slstm_state, mlstm_seq, mlstm_step,
                                     slstm_seq, slstm_step)
 from repro_torch.models.transformer import (_init_common, _layer,
-                                            _public_logits, _unembed)
+                                            _public_logits, _unembed,
+                                            maybe_remat)
 
 
 def build_xlstm(cfg: ModelConfig, max_seq: int, device: torch.device):
@@ -48,15 +49,18 @@ def build_xlstm(cfg: ModelConfig, max_seq: int, device: torch.device):
 
     def _forward(params, batch):
         cd = dtype_of(cfg.compute_dtype)
-        # F.embedding: a backward that sums in a fixed order (see
-        # transformer._embed_in)
-        x = F.embedding(batch["tokens"], params["embed"]).to(cd)
+        x = embed(params["embed"], batch["tokens"]).to(cd)
+        group = maybe_remat(_group_seq, cfg, x)
         for g in range(G):
-            mp = _layer(params["mlstm"], g)
-            for j in range(n_m):
-                x = mlstm_seq(cfg, _layer(mp, j), x)
-            x = slstm_seq(cfg, _layer(params["slstm"], g), x)
+            x = group(_layer(params["mlstm"], g), _layer(params["slstm"], g),
+                      x)
         return _unembed(params, cfg, x)
+
+    def _group_seq(mp, sp, x):
+        """One super-block: the n_m mLSTM blocks, then the sLSTM block."""
+        for j in range(n_m):
+            x = mlstm_seq(cfg, _layer(mp, j), x)
+        return slstm_seq(cfg, sp, x)
 
     def loss_fn(params, batch):
         logits = _forward(params, batch)
@@ -75,14 +79,17 @@ def build_xlstm(cfg: ModelConfig, max_seq: int, device: torch.device):
 
     def _write(stacked: dict, new: dict) -> None:
         for key, val in new.items():
-            stacked[key].copy_(val)
+            dst = stacked[key]
+            if isinstance(dst, DTensor):     # in place: keep dst's placement
+                val = val.redistribute(dst.device_mesh, dst.placements)
+            dst.copy_(val)
 
     def decode_step(params, cache, tok, pos):
         """One token through every block; writes each block's slice of the
         stacked state in place (as the dense KV cache is) and returns the
         same cache.  ``pos`` is unused: the state carries the position."""
         cd = dtype_of(cfg.compute_dtype)
-        x = params["embed"][tok].to(cd)                       # [B, d]
+        x = embed(params["embed"], tok).to(cd)                # [B, d]
         for g in range(G):
             mp, ms = _layer(params["mlstm"], g), _layer(cache["mlstm"], g)
             for j in range(n_m):

@@ -14,7 +14,9 @@ within 2e-5 in float32 and 2e-2 in bfloat16, the mLSTM kernel K6 within
 in another order).  The scheduler service on the card (every decision
 priced by K1/K2) is held bit for bit against the same service on the
 CPU: drains, journals, run_online, recovery of a cut sqlite journal, and
-the module-wide tau switch left unset between steps.
+the module-wide tau switch left unset between steps.  The production-mesh
+dry-run runs one full-width pair on fake CUDA tensors, and counts the same
+FLOPs and collectives on fake and real tensors on one real rank.
 """
 import numpy as np
 import pytest
@@ -1293,3 +1295,55 @@ def test_sched_launch_six_jobs_card_equals_cpu(cuda):
         assert np.array_equal(getattr(card["sim"], f),
                               getattr(host["sim"], f))
     assert all(np.isfinite(v).all() for v in card["losses"].values())
+
+
+# ---------------------------------------------------------------------------
+# the production-mesh dry-run on the card (launch/dryrun.py)
+# ---------------------------------------------------------------------------
+
+
+def test_dryrun_pair_on_fake_cuda_tensors(cuda):
+    """One full-width pair on the single-pod mesh, fake CUDA tensors over
+    a fake group of 256 ranks: it runs, counts, and sends collectives."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    try:
+        row = dryrun.run_pair("llama3.2-1b", "decode_32k", device="cuda",
+                              verbose=False)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert row["chips"] == 256 and row["mesh"] == "16x16"
+    assert row["hlo_flops"] > 0 and row["hlo_bytes"] > 0
+    assert row["collective_bytes"] > 0
+    assert 0 < row["hbm_peak_bytes"] < 80 * 2**30
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_dryrun_one_rank_fake_equals_real(cuda, kind):
+    """On one real rank (nccl, world size 1, a 1x1 mesh) the reduced
+    llama3.2-1b step counts the same FLOPs and collectives on fake and on
+    real CUDA tensors."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.config import InputShape
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device="cuda")
+        cfg = get_config("llama3.2-1b").reduced()
+        shape = InputShape("mini", 256, 4, kind)
+        fake = dryrun.dry_run("llama3.2-1b", shape, mesh, cfg=cfg)
+        real = dryrun.dry_run("llama3.2-1b", shape, mesh, cfg=cfg,
+                              fake=False)
+    finally:
+        dist.destroy_process_group()
+    assert fake["hlo_flops"] == real["hlo_flops"] > 0
+    assert fake["collective_counts"] == real["collective_counts"]
+    assert real["wall_s"] > 0
