@@ -187,20 +187,24 @@ per-launch floor (one in-place add on a one-element tensor):
  12. dry-run -- the production-mesh dry-run (``launch/dryrun.py``): (a)
      full-width pairs as DTensor steps over a fake process group on
      fake CUDA tensors (llama3.2-1b train_4k / prefill_32k / decode_32k,
-     deepseek-moe-16b train_4k, hymba-1.5b long_500k, whisper-tiny
-     train_4k, xlstm-350m decode_32k and internvl2-1b prefill_32k naive
-     and optimized on 16x16; llama3-405b train_4k on 2x16x16), each
-     row's per-device GiB against 80, FLOPs, bytes, collective and DCN
-     bytes, bottleneck and seconds printed; every pair must run and
-     count FLOPs, bytes and collective bytes, llama3-405b must send DCN
-     bytes, naive internvl2-1b must hold every param byte on a device and
-     the optimized run at most 1/16 of them.  (b) llama3.2-1b on one real
-     rank (nccl, world size 1, a 1x1 mesh) at a batch that fits 80 GB,
-     on fake and on real CUDA tensors: the FLOPs and collective counts
-     equal, the fake peak above the arguments within 10% of the card's
-     ``max_memory_allocated`` above them; the measured wall and the
-     roofline share max(t_compute, t_memory) / wall printed.  No kernel
-     launches (the models run with their kernel branches off).
+     deepseek-moe-16b train_4k, hymba-1.5b long_500k and decode_32k,
+     whisper-tiny train_4k, xlstm-350m decode_32k and prefill_32k and
+     internvl2-1b prefill_32k naive and optimized on 16x16; llama3-405b
+     and xlstm-350m train_4k on 2x16x16), each row's per-device GiB
+     against 80, FLOPs, bytes, collective and DCN bytes, bottleneck and
+     seconds printed; every pair must run and count FLOPs, bytes and
+     collective bytes, the 2x16x16 train steps must send DCN bytes,
+     xlstm-350m train_4k must count at least half of 6 N D over its 512
+     devices (its sLSTM scans run as one op each,
+     ``models/slstm_scan.py``), naive internvl2-1b must hold every param
+     byte on a device and the optimized run at most 1/16 of them.
+     (b) llama3.2-1b on one real rank (nccl, world size 1, a 1x1 mesh)
+     at a batch that fits 80 GB, on fake and on real CUDA tensors: the
+     FLOPs and collective counts equal, the fake peak above the
+     arguments within 10% of the card's ``max_memory_allocated`` above
+     them; the measured wall and the roofline share max(t_compute,
+     t_memory) / wall printed.  No kernel launches (the models run with
+     their kernel branches off).
 
 float32 matrix products run in full float32 throughout
 (``torch.backends.cuda.matmul.allow_tf32 = False``, set in ``main``): the
@@ -2721,7 +2725,10 @@ DRYRUN_PAIRS = (("llama3.2-1b", "train_4k", False),
                 ("hymba-1.5b", "long_500k", False),
                 ("whisper-tiny", "train_4k", False),
                 ("xlstm-350m", "decode_32k", False),
-                ("llama3-405b", "train_4k", True))
+                ("llama3-405b", "train_4k", True),
+                ("hymba-1.5b", "decode_32k", False),
+                ("xlstm-350m", "prefill_32k", False),
+                ("xlstm-350m", "train_4k", True))
 # Phase 12 (b): llama3.2-1b on one real rank, (shape, batch) that fit in
 # 80 GB.
 ONE_RANK = (("train_4k", 1), ("prefill_32k", 1), ("decode_32k", 16))
@@ -2764,8 +2771,12 @@ def dryrun_phase(torch, kernels) -> None:
             fail(f"dry-run {arch} x {shape}: no FLOPs or bytes counted")
         if row["collective_bytes"] <= 0:
             fail(f"dry-run {arch} x {shape}: a sharded step sent nothing")
-        if arch == "llama3-405b" and row["dcn_bytes"] <= 0:
-            fail("dry-run llama3-405b x train_4k: no bytes crossed pods")
+        if multi_pod and shape == "train_4k" and row["dcn_bytes"] <= 0:
+            fail(f"dry-run {arch} x train_4k: no bytes crossed pods")
+        if arch == "xlstm-350m" and shape == "train_4k" and \
+                row["hlo_flops"] < 0.5 * row["model_flops"] / row["chips"]:
+            fail(f"dry-run xlstm-350m x train_4k: {row['hlo_flops']} FLOPs "
+                 f"a device, under half of 6 N D over {row['chips']}")
     whole = sum(t.numel() * t.element_size() for t in leaves(
         build_model(get_config("internvl2-1b"), device="meta").init(0)))
     os.environ["REPRO_NAIVE_SHARDING"] = "1"

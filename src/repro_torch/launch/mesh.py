@@ -59,14 +59,31 @@ def fake_world(size: int) -> None:
                             world_size=size)
 
 
+# (default group, shape, axes, device type) -> its mesh
+_MESHES: dict = {}
+
+
 def _mesh(shape: tuple, axes: tuple, device) -> DeviceMesh:
     """A mesh of ``shape`` over the default group, starting a fake group
-    of that size when no group of that size is up."""
+    of that size when no group of that size is up.
+
+    One mesh a world: the same call on the same default group returns the
+    same mesh.  DTensor (torch 2.11) caches its sharding decisions by a
+    mesh's layout, not by its process groups, and replays a cached
+    decision on the groups it was made on.  Each new mesh makes new
+    groups, so after a world of several meshes is torn down a decision
+    cached there names groups that no longer exist; one mesh a world
+    makes the groups of a world's mesh the first it creates, named alike
+    in every world."""
     dev = resolve_device(device)
     n = math.prod(shape)
     if not (dist.is_initialized() and dist.get_world_size() == n):
         fake_world(n)
-    return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+    key = (dist.group.WORLD, tuple(shape), tuple(axes), dev.type)
+    if key not in _MESHES:
+        _MESHES[key] = init_device_mesh(dev.type, shape,
+                                        mesh_dim_names=axes)
+    return _MESHES[key]
 
 
 def make_production_mesh(*, multi_pod: bool = False,

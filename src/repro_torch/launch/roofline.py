@@ -25,7 +25,11 @@ collective DTensor sends:
 
 Eager dispatch counts every loop iteration as it runs, so the reference's
 HLO parsers that undo XLA's once-per-while-body counting have no
-counterpart here.
+counterpart here, but one: the sLSTM's loop over S positions runs on fake
+tensors as one op (``models/slstm_scan.py``), priced as the loop it
+stands for -- its FLOPs through ``flop_registry``, its bytes through
+:data:`BYTES`, and the memory it holds while it runs through
+:data:`WORKSPACE`.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.launch.mesh import DCN_BW, HBM_BW, ICI_BW, PEAK_FLOPS_BF16
+from repro_torch.models import slstm_scan
 
 _DTYPE_BYTES = {
     torch.bool: 1, torch.int8: 1, torch.uint8: 1, torch.int16: 2,
@@ -73,6 +78,15 @@ _COLLECTIVE_NS = ("_c10d_functional", "_c10d_functional_autograd", "_dtensor")
 # ops that read or write no tensor data
 _NO_TRAFFIC = {"empty", "empty_strided", "empty_like", "new_empty",
                "new_empty_strided", "device", "lift_fresh", "wait_tensor"}
+
+# ops that stand for many (a scan priced as the loop it replaces), beside
+# ``flop_registry``: op -> fn(*args, out_val=...) giving the bytes the ops
+# it stands for move, and the bytes they hold above its outputs while it
+# runs
+BYTES = {slstm_scan.scan_op: slstm_scan.scan_bytes,
+         slstm_scan.backward_op: slstm_scan.backward_bytes}
+WORKSPACE = {slstm_scan.scan_op: slstm_scan.scan_workspace,
+             slstm_scan.backward_op: slstm_scan.backward_workspace}
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -172,9 +186,12 @@ class CostCounter(TorchDispatchMode):
         fn = flop_registry.get(func._overloadpacket)
         if fn is not None:
             self.flops += float(fn(*args, **kwargs, out_val=out))
-        ins = [t for t in tree_flatten((args, kwargs))[0]
-               if isinstance(t, torch.Tensor)]
-        b = float(sum(_nbytes(t) for t in ins + outs))
+        if func in BYTES:
+            b = float(BYTES[func](*args, **kwargs, out_val=out))
+        else:
+            ins = [t for t in tree_flatten((args, kwargs))[0]
+                   if isinstance(t, torch.Tensor)]
+            b = float(sum(_nbytes(t) for t in ins + outs))
         self.bytes += b
         self.bytes_by_op[str(func._overloadpacket)] += b
         return out
@@ -311,6 +328,9 @@ class PeakMemory(TorchDispatchMode):
             self._seen[st] = weakref.ref(st, functools.partial(self._free, n))
             self.current += n
             self.peak = max(self.peak, self.current)
+        if func in WORKSPACE:
+            self.peak = max(self.peak, self.current + WORKSPACE[func](
+                *args, **(kwargs or {}), out_val=out))
         return out
 
 

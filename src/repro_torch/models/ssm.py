@@ -15,7 +15,8 @@ The port of ``repro/models/ssm.py``, function for function:
     query-chunked block, whose [c, S] decay slab never grows to [S, S].
   * Decode uses the O(1) matrix-memory recurrence (C, n, m).
   * sLSTM is sequential: the reference's scan over time is a Python loop
-    over the sequence here, one cell step per position.
+    over the sequence here, one cell step per position; on the dry-run's
+    fake tensors one op stands for the loop (``models/slstm_scan.py``).
 
 The reference's dtypes are kept: q/k/v enter the parallel form in fp32,
 the gate weights ``w_if``/``if_bias`` and every recurrent state are fp32,
@@ -34,6 +35,7 @@ import os
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
@@ -42,6 +44,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (BATCH_AXES, _hint_placements,
                                        init_normal, init_uniform, rms_norm,
                                        shard_hint, zero_pad)
+from repro_torch.models.slstm_scan import slstm_scan
 
 # ---------------------------------------------------------------------------
 # associative scan
@@ -198,12 +201,47 @@ def mamba_step(cfg: ModelConfig, p, state, x_t):
     u_c = sum(hist[:, i] * p["w_conv"][i].to(cd) for i in range(_CONV_K))
     u_c = _silu(u_c).reshape(B, Hs, P)
 
-    a, b = _mamba_gates(cfg, p, u_c)
-    h = a.float() * state["h"] + b
-    C = torch.einsum("bhp,hpn->bhn", *_promoted(u_c, p["w_C"])).float()
-    y = torch.einsum("bhpn,bhn->bhp", h, C).to(cd) + p["D"].to(cd) * u_c
+    if isinstance(u_c, DTensor):
+        y, h = _mamba_head_sharded(cfg, p, state["h"], u_c)
+    else:
+        y, h = _mamba_head(cfg, p, state["h"], u_c)
     y = (y.reshape(B, inner) * _silu(z)) @ p["w_out"].to(cd)
     return y, {"h": h, "conv": hist[:, 1:]}
+
+
+_HEAD_KEYS = ("w_dt", "dt_bias", "A_log", "w_B", "w_C", "D")
+
+
+def _mamba_head(cfg: ModelConfig, p, h_prev, u_c):
+    """The SSM update and read-out of one decode step: u_c [B,Hs,P] and
+    the state h_prev [B,Hs,P,N] -> (y [B,Hs,P], the new state)."""
+    a, b = _mamba_gates(cfg, p, u_c)
+    h = a.float() * h_prev + b
+    C = torch.einsum("bhp,hpn->bhn", *_promoted(u_c, p["w_C"])).float()
+    y = torch.einsum("bhpn,bhn->bhp", h, C).to(u_c.dtype) \
+        + p["D"].to(u_c.dtype) * u_c
+    return y, h
+
+
+def _mamba_head_sharded(cfg: ModelConfig, p, h_prev, u_c):
+    """:func:`_mamba_head` on DTensors, on each shard's local tensors
+    (``local_map``): the batch rows keep their shards and the SSM heads
+    are gathered whole, with the head-sized params.  DTensor's own split
+    of the heads is uneven (hymba's 25 over 16) and hands a view a
+    non-contiguous local shard."""
+    mesh = u_c.device_mesh
+    rows = _hint_placements(u_c.shape, mesh, (BATCH_AXES,))
+    state_rows = _hint_placements(h_prev.shape, mesh, (BATCH_AXES,))
+    whole = (Replicate(),) * mesh.ndim
+
+    def local(h_prev, u_c, *leaves):
+        return _mamba_head(cfg, dict(zip(_HEAD_KEYS, leaves)), h_prev, u_c)
+
+    return local_map(local, out_placements=(rows, state_rows),
+                     in_placements=(state_rows, rows)
+                     + (whole,) * len(_HEAD_KEYS),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        h_prev, u_c, *(p[k] for k in _HEAD_KEYS))
 
 
 # ---------------------------------------------------------------------------
@@ -456,10 +494,18 @@ def _slstm_loop(cfg: ModelConfig, r_h, gx):
     return torch.stack(hs, dim=1)
 
 
+def _slstm_scan(cfg: ModelConfig, r_h, gx):
+    """The loop on real tensors; on fake ones (the dry-run) one op that
+    stands for it, priced as the loop (``models/slstm_scan.py``)."""
+    if isinstance(gx, FakeTensor):
+        return slstm_scan(r_h, gx)
+    return _slstm_loop(cfg, r_h, gx)
+
+
 def slstm_seq(cfg: ModelConfig, p, x):
     """Sequential pass over time.  x: [B,S,d] -> [B,S,d].
 
-    On a DTensor the loop runs on each shard's local tensors under
+    On a DTensor the scan runs on each shard's local tensors under
     ``local_map``, after one redistribute of its inputs: gx keeps its
     batch shards and gathers every other dim, r_h is gathered whole (a
     dozen ops a step through sharding propagation would never finish at
@@ -469,12 +515,12 @@ def slstm_seq(cfg: ModelConfig, p, x):
         rows = tuple(pl if pl == Shard(0) else Replicate()
                      for pl in gx.placements)
         whole = (Replicate(),) * len(rows)
-        loop = local_map(functools.partial(_slstm_loop, cfg),
+        scan = local_map(functools.partial(_slstm_scan, cfg),
                          out_placements=(rows,), in_placements=(whole, rows),
                          device_mesh=gx.device_mesh, redistribute_inputs=True)
-        hs = loop(p["r_h"], gx)
+        hs = scan(p["r_h"], gx)
     else:
-        hs = _slstm_loop(cfg, p["r_h"], gx)
+        hs = _slstm_scan(cfg, p["r_h"], gx)
     return _slstm_out(p, x, hs)
 
 

@@ -14,9 +14,11 @@ within 2e-5 in float32 and 2e-2 in bfloat16, the mLSTM kernel K6 within
 in another order).  The scheduler service on the card (every decision
 priced by K1/K2) is held bit for bit against the same service on the
 CPU: drains, journals, run_online, recovery of a cut sqlite journal, and
-the module-wide tau switch left unset between steps.  The production-mesh
-dry-run runs one full-width pair on fake CUDA tensors, and counts the same
-FLOPs and collectives on fake and real tensors on one real rank.
+the module-wide tau switch left unset between steps, and gadget-elastic's
+resize.  The production-mesh dry-run runs one full-width pair on fake CUDA
+tensors, and counts the same FLOPs and collectives on fake and real
+tensors on one real rank; the sLSTM scan op counts what its loop counts
+on fake CUDA tensors.
 """
 import numpy as np
 import pytest
@@ -942,6 +944,41 @@ def test_card_run_online_equals_cpu(cuda, hetero):
     assert LAUNCHES["tau_het" if hetero else "tau"] > before
 
 
+def _resize_trace():
+    """``tests/test_torch_preempt.py``'s tight-theta trace: gadget-elastic
+    shrinks job 0 to make room for job 1."""
+    from repro_torch.core import Job
+    cluster = Cluster(capacities=(4,))
+    jobs = [Job(jid=0, num_gpus=4, iters=2000, grad_size=0.25, batch=32,
+                dt_fwd=3e-4, dt_bwd=8e-3),
+            Job(jid=1, num_gpus=2, iters=100, grad_size=0.05, batch=32,
+                dt_fwd=3e-4, dt_bwd=8e-3)]
+    return cluster, jobs, np.array([0, 5], dtype=np.int64), 35
+
+
+def test_card_gadget_elastic_resize_equals_cpu(cuda):
+    """The elastic resize path on the card (batched engine, K1 pricing):
+    schedule, quotas, simulation and journal bitwise the CPU's."""
+    from repro_torch.service import Daemon, QueueManager, TenantConfig
+    cluster, jobs, arrivals, horizon = _resize_trace()
+    runs = []
+    for device in ("cpu", cuda):
+        daemon = Daemon(cluster, None, QueueManager(
+            default=TenantConfig(policy="gadget-elastic")), horizon=horizon,
+            device=device)
+        for job, a in zip(jobs, arrivals):
+            daemon.admit(job, arrival=int(a))
+        before = LAUNCHES["tau"]
+        runs.append((daemon, daemon.drain(), LAUNCHES["tau"] - before))
+    (host, want, _), (card, got, launched) = runs
+    torch.cuda.synchronize()
+    assert card.state.engine == "batched" and launched > 0
+    assert "resize" in [e.kind for e in card.store.entries()]
+    assert {j: len(g) for j, g in got[0].assignment}[0] < jobs[0].num_gpus
+    _service_same(want, got)
+    assert _journal_rows(card.store) == _journal_rows(host.store)
+
+
 @pytest.mark.parametrize("policy", ["sjf-bco", "sjf-bco-dynamic"])
 def test_card_recovers_a_truncated_sqlite_journal(cuda, tmp_path, policy):
     from repro_torch.service import (SchedulerService, SqliteStore,
@@ -1347,3 +1384,37 @@ def test_dryrun_one_rank_fake_equals_real(cuda, kind):
     assert fake["hlo_flops"] == real["hlo_flops"] > 0
     assert fake["collective_counts"] == real["collective_counts"]
     assert real["wall_s"] > 0
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["fwd", "fwd+bwd"])
+def test_slstm_scan_counts_on_fake_cuda_tensors(cuda, train):
+    """The sLSTM scan as one op (models/slstm_scan.py) counts what the
+    loop counts on fake CUDA tensors (log_sigmoid keeps no buffer there):
+    xlstm-350m widths, B 2, S 64, gx in bf16."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline
+    from repro_torch.models import ssm
+    from repro_torch.models.slstm_scan import slstm_scan
+    cfg = get_config("xlstm-350m")
+    H, d = cfg.n_heads, cfg.d_model
+    rows = []
+    for fn in (lambda r, g: ssm._slstm_loop(cfg, r, g), slstm_scan):
+        mode = FakeTensorMode(allow_non_fake_inputs=True)
+        with mode:
+            r_h = torch.randn(H, d // H, 4 * d // H, device=cuda,
+                              requires_grad=train)
+            gx = torch.randn(2, 64, 4 * d, dtype=torch.bfloat16,
+                             device=cuda, requires_grad=train)
+            grad_h = torch.randn(2, 64, H, d // H, device=cuda)
+        counter = roofline.CostCounter(fake_mode=mode)
+        peak = roofline.PeakMemory([r_h, gx, grad_h], mode)
+        with counter, peak, torch.set_grad_enabled(train):
+            h = fn(r_h, gx)
+            if train:
+                torch.autograd.grad(h, (r_h, gx), grad_h)
+        rows.append((counter.flops, counter.bytes, peak.peak))
+    (loop_f, loop_b, loop_p), (op_f, op_b, op_p) = rows
+    assert op_f == loop_f > 0 and op_b == loop_b > 0
+    assert abs(op_p - loop_p) <= 0.05 * loop_p

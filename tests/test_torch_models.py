@@ -135,14 +135,16 @@ def test_prefill_other_dense_archs(built, count_flash, arch):
 
 
 @pytest.mark.parametrize("flash", [False, True])
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma2-9b", "chatglm3-6b",
+                                  "internvl2-1b"])
 def test_bf16_prefill_within_the_reference_bf16_distance(built, count_flash,
                                                          arch, flash):
     """bf16 compute, the full configs' default: the port's bf16 prefill is
     no farther from the reference's bf16 prefill than that is from the
     reference's own float32 prefill of the same params and tokens (the
     rounding of bf16 itself).  gemma2 brings the softcap and the sliding
-    windows; K5 on is its plain version here."""
+    windows, chatglm3 the half rope, internvl2 the prepended patches; K5
+    on is its plain version here."""
     ref16, rparams, port, params = built(arch, compute_dtype="bfloat16",
                                          use_flash_kernel=flash)
     ref32 = built(arch)[0]
