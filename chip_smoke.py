@@ -453,27 +453,19 @@ def kernel_phase(torch, np, rt, dev) -> list[dict]:
 ENTRY_POINTS = ("pick_orders", "score_probes", "tau_stack")
 
 
-def time_entry_points() -> tuple[dict, dict]:
-    """Wrap the port's kernel-backed entry points (``pick_orders``,
-    ``score_probes``, ``tau_stack``) in place so that each call adds its
-    host wall seconds -- copies to and from the card, launches and the
-    waits on their results -- to the first returned dict and one to the
-    second.  The callers look the functions up on their modules at call
-    time, so the wrapped versions are the ones the main path runs."""
-    from repro_torch.kernels import placement, tau
-    spent, calls = {}, {}
-    for mod, name in zip((placement, placement, tau), ENTRY_POINTS):
-        spent[name], calls[name] = 0.0, 0
-
-        def timed(*args, _fn=getattr(mod, name), _name=name, **kw):
-            t0 = time.perf_counter()
-            try:
-                return _fn(*args, **kw)
-            finally:
-                spent[_name] += time.perf_counter() - t0
-                calls[_name] += 1
-
-        setattr(mod, name, timed)
+def entry_points(rec) -> tuple[dict, dict]:
+    """Host wall seconds and calls of each kernel-backed entry point
+    (``pick_orders``, ``score_probes``, ``tau_stack``) in ``rec``, a
+    ``repro_torch.obs`` recording: its ``kernel.<name>`` spans, which
+    hold the copies to and from the card, the launches and the waits on
+    their results."""
+    spent = dict.fromkeys(ENTRY_POINTS, 0.0)
+    calls = dict.fromkeys(ENTRY_POINTS, 0)
+    for name, t0, t1 in rec.intervals():
+        entry = name.removeprefix("kernel.")
+        if entry in spent:
+            spent[entry] += (t1 - t0) / 1e9
+            calls[entry] += 1
     return spent, calls
 
 
@@ -624,9 +616,9 @@ def same_schedule(a, b) -> bool:
 
 def end_to_end_phase(torch, rt, kernels, totals: dict) -> None:
     """§7 runs and the scale point, each on the card vs on the CPU."""
+    from repro_torch import obs
     from repro_torch.core.contention import tau_backend
 
-    spent, calls = time_entry_points()
     walls = {}
     expect = {("hom", "incremental"): ("pool",),
               ("hom", "batched"): ("pool", "tau"),
@@ -639,14 +631,13 @@ def end_to_end_phase(torch, rt, kernels, totals: dict) -> None:
             workload=rt.WorkloadSpec(seed=1), policy="sjf-bco",
             policy_params=(("engine", engine),), horizon=1200)
         kernels.reset_launch_counts()
-        spent.update(dict.fromkeys(spent, 0.0))
-        calls.update(dict.fromkeys(calls, 0))
+        obs.start()
         t0 = time.perf_counter()
         card = rt.run_scenario(spec, device="cuda")
         torch.cuda.synchronize()
         t_card = time.perf_counter() - t0
         counts = kernels.launch_counts()
-        in_kernels, in_calls = dict(spent), dict(calls)
+        in_kernels, in_calls = entry_points(obs.stop())
         walls[(kind, engine)] = (spec, t_card)
         t0 = time.perf_counter()
         host = rt.run_scenario(spec, device="cpu")
@@ -673,8 +664,7 @@ def end_to_end_phase(torch, rt, kernels, totals: dict) -> None:
     jobs = rt.philly_workload(seed=1, mix=mix_for(1024))
     base = dict(cluster=cluster, jobs=jobs, horizon=1200)
     kernels.reset_launch_counts()
-    spent.update(dict.fromkeys(spent, 0.0))
-    calls.update(dict.fromkeys(calls, 0))
+    obs.start()
     t0 = time.perf_counter()
     with tau_backend("kernel", "cuda"):
         card = rt.get_policy("sjf-bco")(rt.ScheduleRequest(**base, params={
@@ -684,7 +674,7 @@ def end_to_end_phase(torch, rt, kernels, totals: dict) -> None:
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    in_kernels, in_calls = dict(spent), dict(calls)
+    in_kernels, in_calls = entry_points(obs.stop())
     t0 = time.perf_counter()
     host = rt.get_policy("sjf-bco")(rt.ScheduleRequest(**base))
     host_sim = rt.simulate(cluster, jobs, host.assignment)
@@ -1724,6 +1714,7 @@ def service_phase(torch, np, rt, kernels, totals: dict) -> None:
     import tempfile
 
     import repro_torch.service as svc_mod
+    from repro_torch import obs
     from repro_torch.core.online import (poisson_arrivals, run_online,
                                          stream_request)
     from repro_torch.core.theory import report
@@ -1791,18 +1782,16 @@ def service_phase(torch, np, rt, kernels, totals: dict) -> None:
                   f"{decision_stats(np, card, got[0])}", flush=True)
 
     # 2. The service benchmark's traffic at |J| = 1024, card beside CPU.
-    spent, calls = time_entry_points()
     drains = {}
     for traffic in ("poisson", "burst"):
         cluster, jobs, arrivals = service_trace(np, rt, 1024, traffic)
         label = (f"service |J|={len(jobs)} S={cluster.num_servers} "
                  f"{traffic} sjf-bco")
         kernels.reset_launch_counts()
-        spent.update(dict.fromkeys(spent, 0.0))
-        calls.update(dict.fromkeys(calls, 0))
+        obs.start()
         card, got, t_card = service_drain(torch, svc_mod, cluster, jobs,
                                           arrivals, "sjf-bco", "cuda")
-        in_kernels, in_calls = dict(spent), dict(calls)
+        in_kernels, in_calls = entry_points(obs.stop())
         counts = counted(label, ("tau",))
         host, want, t_host = service_drain(torch, svc_mod, cluster, jobs,
                                            arrivals, "sjf-bco", "cpu")

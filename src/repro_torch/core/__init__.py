@@ -20,11 +20,9 @@ from repro_torch.core.cluster import Cluster, philly_cluster
 from repro_torch.core.jobs import Job, philly_workload
 from repro_torch.core.contention import (IncrementalEval, IterModel,
                                          contention_level, degradation,
-                                         estimate_exec_time, eval_counts,
-                                         evaluate, evaluate_many,
-                                         evaluation_engine,
-                                         predict_exec_time,
-                                         reset_eval_counts, scalar_tau_many,
+                                         estimate_exec_time, evaluate,
+                                         evaluate_many, evaluation_engine,
+                                         predict_exec_time, scalar_tau_many,
                                          slots_for, stack_model, tau_backend,
                                          tau_bounds, tau_ladder)
 from repro_torch.core.preempt import evict, evictable, replace, resize
@@ -51,7 +49,7 @@ __all__ = [
     "Cluster", "philly_cluster", "Job", "philly_workload",
     "IterModel", "contention_level", "degradation", "evaluate",
     "evaluate_many", "IncrementalEval", "evaluation_engine",
-    "eval_counts", "reset_eval_counts", "scalar_tau_many", "slots_for",
+    "scalar_tau_many", "slots_for",
     "estimate_exec_time", "predict_exec_time", "tau_bounds",
     "stack_model", "tau_backend", "tau_ladder",
     "SimEvent", "SimResult", "simulate",

@@ -516,7 +516,6 @@ class PlacementState:
         clusters the candidate's worst-member device terms ride along, so
         the probe prices the slow tier / isolated uplink it would land on."""
         p, n_srv = self._probe_p(job, y_j, start)
-        contention.EVAL_COUNTS["probes"] += 1
         cl = self.cluster
         if cl.is_heterogeneous:
             pos = y_j > 0
@@ -570,7 +569,6 @@ class PlacementState:
             for c, (g, start) in enumerate(zip(gpu_sets, starts)):
                 ys[c] = self._y_of(g)
                 ps[c], n_srv[c] = self._probe_p(job, ys[c], start)
-            contention.EVAL_COUNTS["probes"] += len(gpu_sets)
             if self.cluster.is_heterogeneous:
                 speed, bw_sh, bw_iso = contention._hetero_mins(
                     self.cluster, ys > 0)

@@ -54,7 +54,7 @@ import bisect as _bisect
 
 import numpy as np
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core import contention
 from repro_torch.core.cluster import Cluster
 from repro_torch.core.contention import (_job_terms, evaluate_stack,
@@ -345,7 +345,6 @@ class ColumnarPlacement:
                 cnt = len(fin) - _bisect.bisect_right(fin, cuts[c]) + 1
                 if cnt > ps[c]:
                     ps[c] = cnt
-            contention.EVAL_COUNTS["probes"] += C
             if not cl.is_heterogeneous:
                 # Homogeneous clusters: Eq. (8) sees the candidate only
                 # through (p, n_srv), and a step's candidates hit a
@@ -451,6 +450,7 @@ class ColumnarPlacement:
         where the scalar walk's decisions diverge; committed branches are
         re-merged onto deduplicated child rows.
         """
+        sp = obs.open_span("columnar.place") if obs.on else -1
         if pickers is not self._checked_pickers:
             for picker in pickers:
                 if not getattr(picker, "theta_pool", False) \
@@ -467,6 +467,8 @@ class ColumnarPlacement:
             self._pick_ids = np.asarray(ids, dtype=np.int64) \
                 if self._kern is not None and min(ids) >= 0 else None
         if not self._n_live:
+            if sp >= 0:
+                obs.close_span(sp)
             return
         live = np.flatnonzero(self.alive)
         u = self.u
@@ -489,6 +491,8 @@ class ColumnarPlacement:
         dead: list[np.ndarray] = []
         first_try = True
         for _ in range(self.TRIES):
+            if sp >= 0:
+                obs.COUNTERS["columnar.tries"] += 1
             # Pool split: within each work item, group branches by how many
             # GPUs clear the rho_try filter -- equal counts <=> equal pools
             # (threshold sets are nested in theta), hence identical picks.
@@ -629,7 +633,12 @@ class ColumnarPlacement:
                     w.scored[key] = None      # claimed; filled by _score
                     need.append((w, key, g))
             if need:
-                self._score(job, need)
+                if sp >= 0:
+                    sc = obs.open_span("columnar.score")
+                    self._score(job, need)
+                    obs.close_span(sc)
+                else:
+                    self._score(job, need)
             # Eq. (16) re-check: each run splits into a committing upper
             # theta range and a retrying lower one.  All runs place the
             # same G-gang, so the refined-rho bounds come from one batched
@@ -673,6 +682,8 @@ class ColumnarPlacement:
         for w in work:                        # escalation ladder exhausted
             dead.append(w.branches)
         self._apply(job, commits, dead)
+        if sp >= 0:
+            obs.close_span(sp)
 
     def _apply(self, job: Job, commits: list[tuple],
                dead: list[np.ndarray]) -> None:

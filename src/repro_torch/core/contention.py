@@ -22,9 +22,6 @@ Three evaluation engines share these formulas (and are bit-identical):
     for hot loops (scheduler placement probes, the slot simulator) where
     the active set changes one job at a time.
 
-``EVAL_COUNTS`` tallies how often each engine runs so benchmarks can report
-"full-model evaluations saved" (see ``benchmarks/bench_contention.py``).
-
 Heterogeneous clusters (per-GPU ``gpu_speeds`` / per-server uplink
 ``links`` on :class:`~repro_torch.core.cluster.Cluster`) generalise B_j and the
 reduction speed: a job's compute speed is the minimum server speed floor
@@ -48,7 +45,7 @@ from repro_torch.core.cluster import Cluster
 from repro_torch.core.jobs import Job
 
 # --------------------------------------------------------------------------
-# Engine selection + instrumentation
+# Engine selection
 # --------------------------------------------------------------------------
 
 ENGINES = ("incremental", "batched", "reference")
@@ -58,30 +55,6 @@ ENGINES = ("incremental", "batched", "reference")
 # "reference" is the original per-candidate evaluate() loop kept for
 # equivalence testing and as the semantics oracle.
 DEFAULT_ENGINE = "incremental"
-
-EVAL_COUNTS = {
-    "full": 0,              # evaluate() calls (one full [J, S] model pass)
-    "batched_calls": 0,     # evaluate_many() calls (one vectorised pass)
-    "batched_rows": 0,      # total candidates scored across those calls
-    "incremental_updates": 0,  # IncrementalEval row add/remove operations
-    "incremental_removes": 0,  # the remove() subset of those operations
-    "probes": 0,            # O(S) single-job tau probes (no full pass)
-    "ladder_calls": 0,      # simulator multi-window tau_ladder batches
-    "ladder_rows": 0,       # total completion stages across those batches
-    "evictions": 0,         # preempt.evict() live-schedule row removals
-}
-
-
-def reset_eval_counts() -> None:
-    """Zero the per-engine full-model-evaluation counters."""
-    for key in EVAL_COUNTS:
-        EVAL_COUNTS[key] = 0
-
-
-def eval_counts() -> dict[str, int]:
-    """Snapshot of the model-evaluation counters."""
-    return dict(EVAL_COUNTS)
-
 
 @contextlib.contextmanager
 def evaluation_engine(name: str):
@@ -245,7 +218,6 @@ def evaluate(cluster: Cluster, jobs: list[Job], Y: np.ndarray) -> IterModel:
     reduce_t = share / speed
     tau = exchange + reduce_t + gamma + compute
     phi = np.floor(1.0 / tau).astype(np.int64)
-    EVAL_COUNTS["full"] += 1
     return IterModel(p=p, k=k, bandwidth=bandwidth, gamma=gamma,
                      exchange=exchange, reduce=reduce_t, compute=compute,
                      tau=tau, phi=phi)
@@ -416,8 +388,6 @@ def evaluate_many(cluster: Cluster, jobs: list[Job], Y_stack: np.ndarray,
     if not np.array_equal(Y.sum(axis=2), expect):
         raise ValueError("placement does not cover every job's GPUs (Eq. 1)")
 
-    EVAL_COUNTS["batched_calls"] += 1
-    EVAL_COUNTS["batched_rows"] += Y.shape[0]
     return stack_model(cluster, G, share, compute, Y)
 
 
@@ -456,8 +426,6 @@ def evaluate_stack(cluster: Cluster, G: np.ndarray, share: np.ndarray,
     if not np.array_equal(Y.sum(axis=2), expect):
         raise ValueError("placement does not cover every job's GPUs (Eq. 1)")
 
-    EVAL_COUNTS["batched_calls"] += 1
-    EVAL_COUNTS["batched_rows"] += Y.shape[0]
     return stack_model(cluster, G, share, compute, Y)
 
 
@@ -562,7 +530,6 @@ class IncrementalEval:
         self._straddle[row] = row_straddle
         self._live[row] = True
         self._apply_count_delta(row, row_straddle, +1)
-        EVAL_COUNTS["incremental_updates"] += 1
         return row
 
     def remove(self, row: int) -> None:
@@ -576,8 +543,6 @@ class IncrementalEval:
         self._jobs[row] = None
         self._apply_count_delta(row, row_straddle, -1)
         self._free.append(row)
-        EVAL_COUNTS["incremental_updates"] += 1
-        EVAL_COUNTS["incremental_removes"] += 1
 
     def _refresh_terms_scalar(self, r: int) -> None:
         """Recompute k/B/exchange/tau/phi for one row from its current p.
@@ -695,7 +660,6 @@ class IncrementalEval:
         p = int((self._per_server[straddle_row] + 1).max()) \
             if straddle_row.any() else 0
         n_srv = int((y > 0).sum())
-        EVAL_COUNTS["probes"] += 1
         cl = self.cluster
         if cl.is_heterogeneous:
             pos = y > 0
@@ -719,7 +683,6 @@ class IncrementalEval:
         straddle = (Y > 0) & (Y < job.num_gpus)              # [C, S]
         p = np.where(straddle, (self._per_server + 1)[None, :], 0).max(axis=1)
         n_srv = (Y > 0).sum(axis=1)
-        EVAL_COUNTS["probes"] += Y.shape[0]
         cl = self.cluster
         if cl.is_heterogeneous:
             speed, bw_sh, bw_iso = _hetero_mins(cl, Y > 0)

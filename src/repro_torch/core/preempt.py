@@ -49,7 +49,6 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.core import contention
 from repro_torch.core.api import (Chooser, PlacementState, ScheduleRequest,
                                   ScheduleResult, bisect_theta, finalize,
                                   nominal_rho, register_chooser,
@@ -183,7 +182,6 @@ def evict(state: PlacementState, jid: int, t: float, u: float,
             del state.est_start[jid]
             del state.est_finish[jid]
     state.preempted = True
-    contention.EVAL_COUNTS["evictions"] += 1
     if state.evict_hook is not None:
         state.evict_hook(job, t_ev, residual)
     return residual

@@ -22,7 +22,7 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core.api import ScheduleRequest, ScheduleResult, get_policy
 from repro_torch.core.cluster import Cluster, _draw_hetero, philly_cluster
 from repro_torch.core.contention import tau_backend
@@ -254,7 +254,7 @@ def schedule_on(request: ScheduleRequest, policy: str,
         params.setdefault("columnar_backend", "kernel")
     request = dataclasses.replace(request, params=params)
     with (tau_backend("kernel", dev) if on_card
-          else contextlib.nullcontext()):
+          else contextlib.nullcontext()), obs.span("sched.policy"):
         return get_policy(policy)(request)
 
 

@@ -61,7 +61,7 @@ import heapq
 
 import numpy as np
 
-from repro_torch.core import contention
+from repro_torch import obs
 from repro_torch.core.cluster import Cluster
 from repro_torch.core.contention import (IncrementalEval, evaluate, ladder_terms,
                                    resolve_engine, tau_ladder)
@@ -127,6 +127,7 @@ class SimResult:
         return sum(e.contention * e.dt for e in self.events) / total
 
 
+@obs.spanned("sim.simulate")
 def simulate(cluster: Cluster, jobs: list[Job], assignment: Assignment,
              horizon: int = 10**7,
              arrivals: np.ndarray | None = None,
@@ -311,8 +312,6 @@ def simulate(cluster: Cluster, jobs: list[Job], assignment: Assignment,
             depth = min(A - 1, ladder_ramp)
             ent_arr = act_arr[order]
             p, tau, phi = tau_ladder(cluster, terms, ent_arr, depth)
-            contention.EVAL_COUNTS["ladder_calls"] += 1
-            contention.EVAL_COUNTS["ladder_rows"] += depth + 1
             # "rem" caches `rem_ent` in ladder order so window updates
             # are contiguous slice writes; flushed back on invalidation.
             return {"ents": ents, "ent_arr": ent_arr, "stage": 0,

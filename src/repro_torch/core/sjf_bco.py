@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.api import (Chooser, PlacementState, ScheduleRequest,
                             ScheduleResult, SharedState, bisect_theta,
                             finalize, nominal_rho, pick_best_finish,
@@ -382,6 +383,7 @@ def _sweep_speculative(cluster: Cluster, jobs_sorted: list[Job],
     return results
 
 
+@obs.spanned("sched.sweep")
 def _sweep_columnar(cluster: Cluster, jobs: list[Job],
                     jobs_sorted: list[Job], rho_noms: dict[int, float],
                     u: float, thetas: list[float], kappas: list[int],

@@ -40,7 +40,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.tau import cluster_tensors, to_device
 
@@ -344,8 +344,13 @@ def pick_orders(cluster, U_stack: np.ndarray, th_lo: np.ndarray,
     ``order[i, :G_j]``) and the pool-large-enough flag -- all
     bit-identical to the NumPy ``pick_many`` forms.  On the card: one
     copy up, one launch of K3, one copy back, one wait."""
+    on = obs.on
+    if on:
+        top = obs.open_span("kernel.pick_orders")
     dev = resolve_device(device)
     nw, N = U_stack.shape
+    if on:
+        obs.COUNTERS["pool.rows"] += nw
     G = job.num_gpus
     lam_G = float(job.lam * G)
     ct = cluster_tensors(cluster, dev)
@@ -361,8 +366,12 @@ def pick_orders(cluster, U_stack: np.ndarray, th_lo: np.ndarray,
             to_device(pid, torch.int64, dev), G, lam_G, ct["offsets"],
             ct["caps"], st.gpu_server)
         c_lo, c_hi, order, ok = (outs[i].numpy() for i in (0, 1, 6, 7))
+        if on:
+            obs.close_span(top)
         return V, c_lo, c_hi, order, ok
     _check_widths(N, S)
+    if on:
+        sub = obs.open_span("pick_orders.pack")
     n_in = nw * N + 4 * nw
     host_in, hin, dev_in = st.buffers("pool_in", n_in)
     hf = hin.view(np.float64)
@@ -374,18 +383,27 @@ def pick_orders(cluster, U_stack: np.ndarray, th_lo: np.ndarray,
     n_out = 3 * nw + nw * N                     # c_lo, c_hi, ok, order
     host_out, hout, dev_out = st.buffers("pool_out",
                                          pool_words(nw, N, S))
+    if on:
+        obs.close_span(sub)
     if nw:
+        if on:
+            sub = obs.open_span("pick_orders.launch")
         _build.launch("placement", _SIGNATURES, "pool_step", dev,
                       host_in.data_ptr(), dev_in.data_ptr(), G, lam_G,
                       ct["offsets"].data_ptr(), ct["caps"].data_ptr(),
                       st.gpu_server.data_ptr(), nw, N, S, dev_out.data_ptr(),
                       host_out.data_ptr(), n_out)
+        if on:
+            obs.close_span(sub)
         LAUNCHES["pool"] += 1
     res = hout[:n_out].copy()
+    if on:
+        obs.close_span(top)
     return (V, res[:nw], res[nw:2 * nw], res[3 * nw:].reshape(nw, N),
             res[2 * nw:3 * nw].view(np.bool_)[:nw])
 
 
+@obs.spanned("kernel.score_probes")
 def score_probes(cluster, job, Y: np.ndarray, p: np.ndarray, *,
                  device="cuda"):
     """Eq. (6)-(8) scoring of one step's probed candidates on ``device``.

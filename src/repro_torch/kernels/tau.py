@@ -24,7 +24,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.kernels import LAUNCHES, _build
 
 __all__ = ["tau_stack", "tau_stack_hom", "tau_stack_het",
@@ -205,10 +205,18 @@ def tau_stack(cluster, G: np.ndarray, share: np.ndarray,
     ``device``, the homogeneous or heterogeneous wrapper reduces them
     (the CUDA kernel there, its plain version on the CPU), and the
     results come back as NumPy int64/int64/float64."""
+    on = obs.on
+    if on:
+        top = obs.open_span("kernel.tau_stack")
+        obs.COUNTERS["tau.rows"] += Y.shape[0] * Y.shape[1]
+        sub = obs.open_span("tau_stack.h2d")
     dev = resolve_device(device)
     args = (to_device(Y, torch.int64, dev), to_device(G, torch.int64, dev),
             to_device(share, torch.float64, dev),
             to_device(compute, torch.float64, dev))
+    if on:
+        obs.close_span(sub)
+        sub = obs.open_span("tau_stack.launch")
     scal = dict(xi1=float(cluster.xi1), xi2=float(cluster.xi2),
                 alpha=float(cluster.alpha), b_intra=float(cluster.b_intra))
     if cluster.is_heterogeneous:
@@ -220,4 +228,10 @@ def tau_stack(cluster, G: np.ndarray, share: np.ndarray,
         p, n_srv, tau = tau_stack_hom(*args, b_inter=float(cluster.b_inter),
                                       gpu_speed=float(cluster.gpu_speed),
                                       **scal)
-    return p.cpu().numpy(), n_srv.cpu().numpy(), tau.cpu().numpy()
+    if on:
+        obs.close_span(sub)
+        sub = obs.open_span("tau_stack.d2h")
+    out = p.cpu().numpy(), n_srv.cpu().numpy(), tau.cpu().numpy()
+    if on:
+        obs.close_span(top)
+    return out

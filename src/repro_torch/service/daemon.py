@@ -52,7 +52,7 @@ import time
 
 import numpy as np
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core.api import (PlacementState, ScheduleResult, finalize,
                                   get_chooser)
 from repro_torch.core.cluster import Cluster
@@ -197,87 +197,96 @@ class Daemon:
         batch = self.queue.next_batch()
         if not batch:
             return False
-        self.rounds += 1
-        t_round = max(r.arrival for r in batch)
-        self.store.append("advance", -1, {"t": t_round}, ts=self.clock.now())
-        self.clock.advance(t_round)
-        theta = float(self.horizon)
-        for record in batch:
-            chooser = self._chooser_for(record.tenant)
-            self._transition(record, JobState.PLACING)
-            self.state.advance_to(record.arrival)
-            self._events = []
-            t0 = time.perf_counter()
-            with self._pricing():
-                ok = chooser(self.state, record.job, theta)
-            self.decision_latencies.append(time.perf_counter() - t0)
-            # Stateful choosers (RAND) snapshot their post-decision rng
-            # state INSIDE the outcome transition: one atomic append, so
-            # there is no crash window between the outcome and the state
-            # the next decision must start from.
-            get_state = getattr(chooser, "get_state", None)
-            extra = {} if get_state is None else {"rng": get_state()}
-            if not ok:
-                if self._events:
-                    raise RuntimeError(
-                        f"chooser mutated the placement state while failing "
-                        f"to place job {record.jid} (trial preemption must "
-                        "run on a clone)")
-                self._transition(record, JobState.FAILED, **extra)
-                self.store.append("decided", record.jid, {},
-                                  ts=self.clock.now())
-                continue
-            events = self._events
-            if sum(1 for ev in events
-                   if ev[0] == "commit" and ev[1] == record.jid) != 1:
-                raise RuntimeError(
-                    f"chooser must commit job {record.jid} exactly once "
-                    f"while placing it (got events "
-                    f"{[(e[0], getattr(e[1], 'jid', e[1])) for e in events]})")
-            # Journal the decision's event stream in journal == commit
-            # order (U += charges are float-order-sensitive, so replay
-            # must re-commit in the live order); the closing ``decided``
-            # record makes the bracket atomic: replay applies all of it
-            # or none of it (_replay buffers between PLACING and the
-            # ``decided``).
-            for ev in events:
-                if ev[0] == "evict":
-                    _, vjob, t_ev, residual = ev
-                    vrec = self.records[vjob.jid]
-                    if vrec.state is not JobState.RUNNING:
-                        raise RuntimeError(
-                            f"chooser evicted job {vjob.jid} in state "
-                            f"{vrec.state.value}; preemptive policies need "
-                            "est-consistent completion feedback (run with "
-                            'monitor_every=0 or feedback="actual")')
-                    kind = "resize" \
-                        if residual.num_gpus != vjob.num_gpus else "evict"
-                    self.store.append(kind, vjob.jid,
-                                      {"t": t_ev,
-                                       "iters": residual.iters,
-                                       "num_gpus": residual.num_gpus},
-                                      ts=self.clock.now())
-                    self._transition(vrec, JobState.QUEUED)
-                    vrec.job = residual
-                elif ev[1] == record.jid:       # the arrival itself
-                    _, jid, gpus, rho, start = ev
-                    record.gpus, record.rho, record.start = gpus, rho, start
-                    self._transition(record, JobState.RUNNING,
-                                     gpus=[int(g) for g in gpus],
-                                     rho=rho, start=start, **extra)
-                else:         # the victim's residual re-placement
-                    _, jid2, gpus2, rho2, start2 = ev
-                    vrec = self.records[jid2]
-                    self._transition(vrec, JobState.PLACING)
-                    vrec.gpus, vrec.rho, vrec.start = gpus2, rho2, start2
-                    self._transition(vrec, JobState.RUNNING,
-                                     gpus=[int(g) for g in gpus2],
-                                     rho=rho2, start=start2)
-            self.store.append("decided", record.jid, {},
+        with obs.span("daemon.round"):
+            self.rounds += 1
+            t_round = max(r.arrival for r in batch)
+            self.store.append("advance", -1, {"t": t_round},
                               ts=self.clock.now())
-        if self.monitor_every and self.rounds % self.monitor_every == 0:
-            self.monitor()
+            self.clock.advance(t_round)
+            theta = float(self.horizon)
+            for record in batch:
+                with obs.span("daemon.decide"):
+                    self._decide(record, theta)
+            if self.monitor_every and self.rounds % self.monitor_every == 0:
+                self.monitor()
         return True
+
+    def _decide(self, record: JobRecord, theta: float) -> None:
+        """One decision of a round: journal ``PLACING``, run the tenant's
+        chooser, journal its outcome and ``decided``."""
+        chooser = self._chooser_for(record.tenant)
+        self._transition(record, JobState.PLACING)
+        self.state.advance_to(record.arrival)
+        self._events = []
+        sp = obs.open_span("daemon.chooser") if obs.on else -1
+        t0 = time.perf_counter()
+        with self._pricing():
+            ok = chooser(self.state, record.job, theta)
+        self.decision_latencies.append(time.perf_counter() - t0)
+        if sp >= 0:
+            obs.close_span(sp)
+        # Stateful choosers (RAND) snapshot their post-decision rng
+        # state INSIDE the outcome transition: one atomic append, so
+        # there is no crash window between the outcome and the state
+        # the next decision must start from.
+        get_state = getattr(chooser, "get_state", None)
+        extra = {} if get_state is None else {"rng": get_state()}
+        if not ok:
+            if self._events:
+                raise RuntimeError(
+                    f"chooser mutated the placement state while failing "
+                    f"to place job {record.jid} (trial preemption must "
+                    "run on a clone)")
+            self._transition(record, JobState.FAILED, **extra)
+            self.store.append("decided", record.jid, {}, ts=self.clock.now())
+            return
+        events = self._events
+        if sum(1 for ev in events
+               if ev[0] == "commit" and ev[1] == record.jid) != 1:
+            raise RuntimeError(
+                f"chooser must commit job {record.jid} exactly once "
+                f"while placing it (got events "
+                f"{[(e[0], getattr(e[1], 'jid', e[1])) for e in events]})")
+        # Journal the decision's event stream in journal == commit
+        # order (U += charges are float-order-sensitive, so replay
+        # must re-commit in the live order); the closing ``decided``
+        # record makes the bracket atomic: replay applies all of it
+        # or none of it (_replay buffers between PLACING and the
+        # ``decided``).
+        for ev in events:
+            if ev[0] == "evict":
+                _, vjob, t_ev, residual = ev
+                vrec = self.records[vjob.jid]
+                if vrec.state is not JobState.RUNNING:
+                    raise RuntimeError(
+                        f"chooser evicted job {vjob.jid} in state "
+                        f"{vrec.state.value}; preemptive policies need "
+                        "est-consistent completion feedback (run with "
+                        'monitor_every=0 or feedback="actual")')
+                kind = "resize" \
+                    if residual.num_gpus != vjob.num_gpus else "evict"
+                self.store.append(kind, vjob.jid,
+                                  {"t": t_ev,
+                                   "iters": residual.iters,
+                                   "num_gpus": residual.num_gpus},
+                                  ts=self.clock.now())
+                self._transition(vrec, JobState.QUEUED)
+                vrec.job = residual
+            elif ev[1] == record.jid:       # the arrival itself
+                _, jid, gpus, rho, start = ev
+                record.gpus, record.rho, record.start = gpus, rho, start
+                self._transition(record, JobState.RUNNING,
+                                 gpus=[int(g) for g in gpus],
+                                 rho=rho, start=start, **extra)
+            else:         # the victim's residual re-placement
+                _, jid2, gpus2, rho2, start2 = ev
+                vrec = self.records[jid2]
+                self._transition(vrec, JobState.PLACING)
+                vrec.gpus, vrec.rho, vrec.start = gpus2, rho2, start2
+                self._transition(vrec, JobState.RUNNING,
+                                 gpus=[int(g) for g in gpus2],
+                                 rho=rho2, start=start2)
+        self.store.append("decided", record.jid, {}, ts=self.clock.now())
 
     def drain(self, sim_horizon: int = 10**7
               ) -> "tuple[ScheduleResult, SimResult]":
@@ -294,6 +303,7 @@ class Daemon:
 
     # -- the monitor loop -------------------------------------------------
 
+    @obs.spanned("daemon.monitor")
     def monitor(self, at: "int | None" = None) -> SimResult:
         """Execute the committed assignment in virtual time up to ``at``
         (default: the clock's now) and fold completions back: RUNNING jobs

@@ -38,6 +38,8 @@ import dataclasses
 import json
 import sqlite3
 
+from repro_torch import obs
+
 __all__ = ["JournalEntry", "MemoryStore", "SqliteStore", "compact_entries",
            "open_store"]
 
@@ -206,6 +208,7 @@ class MemoryStore:
         # entries by one), so the counter is persistent, not len+1.
         self._next_seq = self._entries[-1].seq + 1 if self._entries else 1
 
+    @obs.spanned("journal.append")
     def append(self, kind: str, jid: int, payload: dict,
                ts: float = 0.0) -> JournalEntry:
         """Append one entry; returns it with its assigned sequence number."""
@@ -261,6 +264,7 @@ class SqliteStore:
             " payload TEXT NOT NULL)")
         self._db.commit()
 
+    @obs.spanned("journal.append")
     def append(self, kind: str, jid: int, payload: dict,
                ts: float = 0.0) -> JournalEntry:
         """Append + commit one entry; returns it with its sequence number."""
