@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Copies, kernels and host time of one ``pick_orders`` / ``score_probes``
-call on one NVIDIA card, for any checkout of the port.
+/ ``tau_stack`` call on one NVIDIA card, for any checkout of the port.
 
 Run on a machine with a CUDA card and nvcc::
 

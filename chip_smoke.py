@@ -37,9 +37,10 @@ per-launch floor (one in-place add on a one-element tensor):
      reaches must have launched; each run prints its calls and host
      seconds (per run and per call) inside ``pick_orders``,
      ``score_probes`` and ``tau_stack``.  Then one traced call of
-     ``pick_orders`` and of ``score_probes`` (torch.profiler) must make
-     one HtoD copy, one DtoH copy and one kernel, and 50 traced and 200
-     untraced calls split a call into copies, launch, wait and host work;
+     ``pick_orders``, of ``score_probes`` and of ``tau_stack``
+     (torch.profiler) must make one HtoD copy, one DtoH copy and one
+     kernel, and 50 traced and 200 untraced calls split a call into
+     copies, launch, wait and host work;
   4. serving -- llama3.2-1b at full width (16 layers, d_model 2048, vocab
      128256), random weights from a seeded ``torch.Generator``, K5 on:
      float32 prefill (B = 2, S = 512) with K5 against K5 off (2e-4) and 16
@@ -481,21 +482,23 @@ def print_entry_points(spent: dict, calls: dict, t_card: float) -> None:
 
 
 def entry_point_copies(torch, np, rt, dev, gate: bool = True) -> None:
-    """One ``pick_orders`` and one ``score_probes`` call on the card under
-    torch.profiler: the HtoD and DtoH copies and kernels each makes.  The
-    tracer can lose device events but never adds any, so with ``gate`` a
-    traced call showing more than one of a kind fails, and so does one
-    that shows no single call with one of each in five tries.  Then the
+    """One ``pick_orders``, one ``score_probes`` and one ``tau_stack``
+    call on the card under torch.profiler: the HtoD and DtoH copies and
+    kernels each makes.  The tracer can lose device events but never adds
+    any, so with ``gate`` a traced call showing more than one of a kind
+    fails, and so does one that shows no single call with one of each in
+    five tries.  Then the
     split of a call from 50 traced calls: device ms of its copies and
     kernel, host ms in the CUDA runtime's copy, launch and wait calls,
     and the mean wall ms of 200 untraced calls, of which the rest is host
     work (packing, unpacking, Python).  Shapes: the scale point's cluster
     (32 servers, 524 GPUs), 64 work rows, an 8-GPU job, both pickers; 64
-    heterogeneous candidates of it."""
+    heterogeneous candidates of it; a homogeneous stack of 64 candidates
+    of 161 jobs with per-candidate terms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    from repro_torch.kernels import placement
+    from repro_torch.kernels import placement, tau
     rng = np.random.default_rng(5)
     cluster = rt.philly_cluster(32, seed=1)
     het = rt.philly_cluster(32, seed=1, **HETERO)
@@ -509,8 +512,13 @@ def entry_point_copies(torch, np, rt, dev, gate: bool = True) -> None:
     Y = np.stack([np.bincount(het.gpu_server[rng.choice(N, 8, False)],
                               minlength=S) for _ in range(B)])
     p = rng.integers(0, 8, size=B).astype(np.float64)
+    C, J = 64, 161
+    stack = (rng.integers(1, 9, (C, J)), rng.uniform(0.1, 10.0, (C, J)),
+             rng.uniform(1, 5, (C, J)),
+             rng.integers(1, 5, (C, J, S)) * (rng.random((C, J, S)) < 0.1))
     calls = (("pick_orders", lambda: placement.pick_orders(*pick)),
-             ("score_probes", lambda: placement.score_probes(het, job, Y, p)))
+             ("score_probes", lambda: placement.score_probes(het, job, Y, p)),
+             ("tau_stack", lambda: tau.tau_stack(cluster, *stack)))
 
     def traced(fn, reps):
         """(device events as (kind, ms), CUDA runtime host ms by name) of

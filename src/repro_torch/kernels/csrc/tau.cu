@@ -36,6 +36,14 @@
 // larger stack is taken in chunks of rows: one pass over all chunks for
 // the counts, a second that rebuilds each chunk's flags for the rows'
 // outputs.  Both paths give the same bits.
+//
+// What the caller waits on, though, is the round trip around the ~7 us
+// kernel: the host's inputs go up, the outputs come back, and the host
+// waits for them.  So tau_step_hom / tau_step_het below make the whole of
+// one tau_stack call in one call from the wrapper: one copy up of the
+// packed inputs (Y, G, share, compute in one buffer of int64 words) from a
+// pinned host buffer, one launch, one copy back of p, n_srv and tau into
+// another pinned host buffer, and one wait on the stream.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -222,6 +230,37 @@ int launch(const void* Y, const void* G, const void* share,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One round trip: copy up, launch, copy back, wait (see tau_step_hom).  A
+// failed launch still waits, so the caller may reuse host_in at once.
+template <bool kHetero>
+int step(const void* host_in, void* dev_in, long long in_words,
+         long long g_off, long long share_off, long long compute_off,
+         const void* speed_floor, const void* uplink_sh,
+         const void* uplink_iso, void* dev_out, void* host_out, int C, int J,
+         int S, long long term_stride, double xi1, double xi2, double alpha,
+         double b_inter, double b_intra, double gpu_speed,
+         cudaStream_t stream) {
+  cudaError_t err =
+      cudaMemcpyAsync(dev_in, host_in, in_words * sizeof(int64_t),
+                      cudaMemcpyHostToDevice, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t* in = static_cast<const int64_t*>(dev_in);
+  int64_t* out = static_cast<int64_t*>(dev_out);
+  const long long CJ = static_cast<long long>(C) * J;
+  const int launched = launch<kHetero>(
+      in, in + g_off, in + share_off, in + compute_off, speed_floor,
+      uplink_sh, uplink_iso, out, out + CJ, out + 2 * CJ, C, J, S,
+      term_stride, xi1, xi2, alpha, b_inter, b_intra, gpu_speed, stream);
+  if (launched) {
+    cudaStreamSynchronize(stream);
+    return launched;
+  }
+  err = cudaMemcpyAsync(host_out, dev_out, 3 * CJ * sizeof(int64_t),
+                        cudaMemcpyDeviceToHost, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaStreamSynchronize(stream));
+}
+
 }  // namespace
 
 extern "C" {
@@ -251,6 +290,39 @@ int tau_stack_het(const void* Y, const void* G, const void* share,
                       uplink_iso, p, n_srv, tau, C, J, S, term_stride, xi1,
                       xi2, alpha, 0.0, b_intra, 0.0,
                       static_cast<cudaStream_t>(stream));
+}
+
+// One tau_stack call (K1): in_words packed words copied up from the pinned
+// host_in into dev_in -- Y [C, J, S] int64 from word 0, then G int64,
+// share and compute float64 from words g_off, share_off and compute_off
+// (each [J], term_stride 0, or [C, J], term_stride J) -- one launch writing
+// p, n_srv and tau [C, J] one after the other into dev_out, those 3 * C * J
+// words copied back into the pinned host_out, one wait on the stream.
+int tau_step_hom(const void* host_in, void* dev_in, long long in_words,
+                 long long g_off, long long share_off, long long compute_off,
+                 void* dev_out, void* host_out, int C, int J, int S,
+                 long long term_stride, double xi1, double xi2, double alpha,
+                 double b_inter, double b_intra, double gpu_speed,
+                 void* stream) {
+  return step<false>(host_in, dev_in, in_words, g_off, share_off,
+                     compute_off, nullptr, nullptr, nullptr, dev_out,
+                     host_out, C, J, S, term_stride, xi1, xi2, alpha,
+                     b_inter, b_intra, gpu_speed,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The same for a heterogeneous stack (K2), with the cluster's per-server
+// speed floors and shared/isolated uplinks ([S] float64 on the device).
+int tau_step_het(const void* host_in, void* dev_in, long long in_words,
+                 long long g_off, long long share_off, long long compute_off,
+                 const void* speed_floor, const void* uplink_sh,
+                 const void* uplink_iso, void* dev_out, void* host_out, int C,
+                 int J, int S, long long term_stride, double xi1, double xi2,
+                 double alpha, double b_intra, void* stream) {
+  return step<true>(host_in, dev_in, in_words, g_off, share_off, compute_off,
+                    speed_floor, uplink_sh, uplink_iso, dev_out, host_out, C,
+                    J, S, term_stride, xi1, xi2, alpha, 0.0, b_intra, 0.0,
+                    static_cast<cudaStream_t>(stream));
 }
 
 const char* tau_error_string(int err) {

@@ -13,8 +13,15 @@ Two wrappers, one per kernel, take torch tensors: :func:`tau_stack_hom`
 uplinks, counted as ``"tau_het"``).  A CPU tensor runs the plain PyTorch
 version beside each (:func:`tau_stack_hom_plain`,
 :func:`tau_stack_het_plain`), which is float64 in the same operation
-order as the NumPy engines.  :func:`tau_stack` is the NumPy-in/NumPy-out
-entry point ``contention.stack_model`` calls.
+order as the NumPy engines.
+
+:func:`tau_stack` is the NumPy-in/NumPy-out entry point
+``contention.stack_model`` calls.  On the card it packs its inputs into
+one pinned host buffer (layout in :func:`tau_words`) and makes one C call
+(``tau_step_hom`` / ``tau_step_het`` in ``csrc/tau.cu``): one copy up, one
+launch, one copy back into another pinned buffer and one wait.  The
+buffers are kept per device and grown as needed (:class:`_Staging`); the
+results are copies, never views of them.
 """
 from __future__ import annotations
 
@@ -35,6 +42,10 @@ _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _SIGNATURES = {
     "tau_stack_hom": [_P] * 7 + [_I, _I, _I, _L] + [_D] * 6 + [_P],
     "tau_stack_het": [_P] * 10 + [_I, _I, _I, _L] + [_D] * 4 + [_P],
+    "tau_step_hom": [_P, _P] + [_L] * 4 + [_P, _P, _I, _I, _I, _L]
+    + [_D] * 6 + [_P],
+    "tau_step_het": [_P, _P] + [_L] * 4 + [_P] * 5 + [_I, _I, _I, _L]
+    + [_D] * 4 + [_P],
 }
 
 
@@ -193,6 +204,154 @@ def to_device(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
 
+# --------------------------------------------------------------------------
+# NumPy-in / NumPy-out entry point
+# --------------------------------------------------------------------------
+
+
+def tau_words(C: int, J: int, S: int, terms_2d: bool
+              ) -> tuple[int, int, int, int]:
+    """``(g, share, compute, words)``: the int64-word offsets of G, share
+    and compute in :func:`tau_stack`'s packed input, and its length.
+
+    Y [C, J, S] int64 fills words 0 to C*J*S; G (int64), share and compute
+    (float64 bits) follow, each [C, J] with ``terms_2d``, else [J], and
+    each from an even word (16 bytes)."""
+    T = C * J if terms_2d else J
+    g = C * J * S
+    g += g & 1
+    sh = g + T + ((g + T) & 1)
+    cp = sh + T + ((sh + T) & 1)
+    return g, sh, cp, cp + T
+
+
+def pack_stack(words: np.ndarray, Y: np.ndarray, G: np.ndarray,
+               share: np.ndarray, compute: np.ndarray) -> int:
+    """Write a stack and its terms into the int64 array ``words`` at the
+    offsets of :func:`tau_words`; returns the words written."""
+    g, sh, cp, n = tau_words(*Y.shape, G.ndim == 2)
+    T = G.size
+    words[:Y.size].reshape(Y.shape)[...] = Y
+    words[g:g + T].reshape(G.shape)[...] = G
+    f = words.view(np.float64)
+    f[sh:sh + T].reshape(G.shape)[...] = share
+    f[cp:cp + T].reshape(G.shape)[...] = compute
+    return n
+
+
+class _Staging:
+    """Per-device state of :func:`tau_stack`: a pinned host buffer and a
+    device buffer of int64 words in each direction (``inp``, ``out``: each
+    ``(host tensor, its NumPy view, device tensor, host pointer, device
+    pointer)``), grown (doubled) as needed and never shrunk.  A call
+    reuses them only after the wait that ended the previous call, and
+    copies its results out of them.  Host buffers are pinned on a CUDA
+    device only (a CPU-only build of torch cannot pin)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.inp = self.out = None
+
+    def _grow(self, have, words: int):
+        n = max(words, 2 * have[0].numel() if have else 0, 1)
+        host = torch.empty(n, dtype=torch.int64,
+                           pin_memory=self.device.type == "cuda")
+        dev = torch.empty(n, dtype=torch.int64, device=self.device)
+        return host, host.numpy(), dev, host.data_ptr(), dev.data_ptr()
+
+    def reserve(self, n_in: int, n_out: int):
+        """``(inp, out)`` of at least ``n_in`` and ``n_out`` words.  A call
+        that grows either adds one to the ``tau.regrows`` counter."""
+        inp, out = self.inp, self.out
+        if inp is None or inp[0].numel() < n_in or out[0].numel() < n_out:
+            if inp is None or inp[0].numel() < n_in:
+                inp = self.inp = self._grow(inp, n_in)
+            if out is None or out[0].numel() < n_out:
+                out = self.out = self._grow(out, n_out)
+            if obs.on:
+                obs.COUNTERS["tau.regrows"] += 1
+        return inp, out
+
+
+@functools.lru_cache(maxsize=16)
+def _staging(index: int) -> _Staging:
+    """The staging of CUDA device ``index``, shared by every cluster."""
+    return _Staging(torch.device("cuda", index))
+
+
+def _current() -> tuple[int, int]:
+    """The current CUDA device's index and the handle of its current
+    stream, looked up without making a ``torch.cuda.Stream``."""
+    index = torch.cuda.current_device()
+    return index, torch._C._cuda_getCurrentRawStream(index)
+
+
+@functools.cache
+def _step_fn(name: str):
+    """The ctypes function of the C entry point ``name`` (built and bound
+    on first use)."""
+    return getattr(_build.load("tau", _SIGNATURES), name)
+
+
+def _check_arrays(Y, G, share, compute) -> None:
+    """Raise unless ``Y`` is an integer [C, J, S] array and ``G`` (integer),
+    ``share`` and ``compute`` (floating) are [J] or [C, J] arrays."""
+    if Y.ndim != 3 or Y.dtype.kind not in "iu":
+        raise ValueError(f"Y must be an integer [C, J, S] array, got "
+                         f"{Y.dtype} {Y.shape}")
+    C, J, _ = Y.shape
+    if G.shape not in ((J,), (C, J)) or G.dtype.kind not in "iu":
+        raise ValueError(f"G must be an integer [J] or [C, J] array, got "
+                         f"{G.dtype} {G.shape}")
+    for name, a in (("share", share), ("compute", compute)):
+        if a.shape != G.shape or a.dtype.kind != "f":
+            raise ValueError(f"{name} must be a float {G.shape} array, got "
+                             f"{a.dtype} {a.shape}")
+
+
+def _round_trip(cluster, G, share, compute, Y, on):
+    """:func:`tau_stack` of a non-empty stack on the current CUDA device:
+    pack, one C call, copy out."""
+    C, J, S = Y.shape
+    if on:
+        sub = obs.open_span("tau_stack.h2d")
+    index, stream = _current()
+    st = _staging(index)
+    g, sh, cp, n_in = tau_words(C, J, S, G.ndim == 2)
+    CJ = C * J
+    inp, out = st.reserve(n_in, 3 * CJ)
+    pack_stack(inp[1], Y, G, share, compute)
+    if on:
+        obs.close_span(sub)
+        sub = obs.open_span("tau_stack.launch")
+    head = (inp[3], inp[4], n_in, g, sh, cp)
+    tail = (C, J, S, J if G.ndim == 2 else 0, float(cluster.xi1),
+            float(cluster.xi2), float(cluster.alpha))
+    if cluster.is_heterogeneous:
+        ct = cluster_tensors(cluster, st.device)
+        name, fn = "tau_het", _step_fn("tau_step_het")
+        args = (*head, ct["speed_floor"].data_ptr(),
+                ct["uplink_sh"].data_ptr(), ct["uplink_iso"].data_ptr(),
+                out[4], out[3], *tail, float(cluster.b_intra), stream)
+    else:
+        name, fn = "tau", _step_fn("tau_step_hom")
+        args = (*head, out[4], out[3], *tail, float(cluster.b_inter),
+                float(cluster.b_intra), float(cluster.gpu_speed), stream)
+    err = fn(*args)
+    if err:
+        msg = _step_fn("tau_error_string")(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed: {msg} (error {err})")
+    LAUNCHES[name] += 1
+    if on:
+        obs.close_span(sub)
+        sub = obs.open_span("tau_stack.d2h")
+    res = out[1][:3 * CJ].copy()
+    if on:
+        obs.close_span(sub)
+    return (res[:CJ].reshape(C, J), res[CJ:2 * CJ].reshape(C, J),
+            res[2 * CJ:].view(np.float64).reshape(C, J))
+
+
 def tau_stack(cluster, G: np.ndarray, share: np.ndarray,
               compute: np.ndarray, Y: np.ndarray, device="cuda"
               ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -201,16 +360,32 @@ def tau_stack(cluster, G: np.ndarray, share: np.ndarray,
     ``Y`` [C, J, S] is the (already masked) candidate stack; ``G``,
     ``share`` and ``compute`` are the placement-independent per-job terms
     (see ``repro_torch.core.contention._job_terms``), either shared
-    across the stack ([J]) or per candidate ([C, J]).  The arrays go to
-    ``device``, the homogeneous or heterogeneous wrapper reduces them
-    (the CUDA kernel there, its plain version on the CPU), and the
-    results come back as NumPy int64/int64/float64."""
+    across the stack ([J]) or per candidate ([C, J]).  Returns NumPy
+    int64/int64/float64.  On the card: one copy up, one launch of K1 (K2
+    on a heterogeneous cluster), one copy back, one wait.  On the CPU the
+    homogeneous or heterogeneous wrapper runs its plain version."""
     on = obs.on
     if on:
         top = obs.open_span("kernel.tau_stack")
         obs.COUNTERS["tau.rows"] += Y.shape[0] * Y.shape[1]
-        sub = obs.open_span("tau_stack.h2d")
     dev = resolve_device(device)
+    _check_arrays(Y, G, share, compute)
+    C, J = Y.shape[:2]
+    if dev.type == "cuda":
+        if not (C and J):
+            out = (np.zeros((C, J), dtype=np.int64),
+                   np.zeros((C, J), dtype=np.int64),
+                   np.zeros((C, J), dtype=np.float64))
+        elif dev.index is None or dev.index == torch.cuda.current_device():
+            out = _round_trip(cluster, G, share, compute, Y, on)
+        else:
+            with torch.cuda.device(dev):
+                out = _round_trip(cluster, G, share, compute, Y, on)
+        if on:
+            obs.close_span(top)
+        return out
+    if on:
+        sub = obs.open_span("tau_stack.h2d")
     args = (to_device(Y, torch.int64, dev), to_device(G, torch.int64, dev),
             to_device(share, torch.float64, dev),
             to_device(compute, torch.float64, dev))
@@ -231,7 +406,7 @@ def tau_stack(cluster, G: np.ndarray, share: np.ndarray,
     if on:
         obs.close_span(sub)
         sub = obs.open_span("tau_stack.d2h")
-    out = p.cpu().numpy(), n_srv.cpu().numpy(), tau.cpu().numpy()
+    out = p.numpy(), n_srv.numpy(), tau.numpy()
     if on:
         obs.close_span(top)
     return out

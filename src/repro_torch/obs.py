@@ -27,9 +27,11 @@ Spans (``name``: where, what it covers):
   * ``kernel.pick_orders`` (children ``pick_orders.pack``, filling the
     pinned buffer, and ``pick_orders.launch``: copy up, K3, copy back,
     wait), ``kernel.score_probes``;
-  * ``kernel.tau_stack`` (children ``tau_stack.h2d``, the four copies up,
-    ``tau_stack.launch``, K1/K2's wrapper, and ``tau_stack.d2h``, the
-    three copies back, which wait for the kernel);
+  * ``kernel.tau_stack`` (children ``tau_stack.h2d``, packing the inputs
+    into the pinned buffer, ``tau_stack.launch``, the one C call: copy up,
+    K1/K2, copy back, wait, and ``tau_stack.d2h``, the copy out of the
+    pinned buffer; on the CPU: the tensors made, the plain version, the
+    arrays taken back);
   * ``sim.simulate``: one simulation;
   * ``daemon.round``, ``daemon.decide`` (one decision), ``daemon.chooser``
     (around the interval ``Daemon.decision_latencies`` holds),
@@ -55,6 +57,7 @@ COUNTERS = {
     "columnar.tries": 0,     # rounds of ColumnarPlacement's escalation ladder
     "pool.rows": 0,          # work rows handed to pick_orders (K3)
     "tau.rows": 0,           # C * J rows of the stacks tau_stack reduces
+    "tau.regrows": 0,        # tau_stack calls that grew its staging buffers
 }
 
 #: Whether spans and counters are being recorded.

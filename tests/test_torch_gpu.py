@@ -315,6 +315,117 @@ def test_score_probes_reuses_pinned_buffers(cuda, hetero):
     assert LAUNCHES["score"] == before + 3
 
 
+def _tau_equal(cluster, G, share, compute, Y):
+    """``tau_stack`` on the card (one C call over the pinned staging)
+    against the tensor wrappers on the card, ``tau_stack`` on the CPU (the
+    plain versions) and the NumPy ``stack_model``, bit for bit; one launch
+    counted for a non-empty stack, none for an empty one.  Returns the
+    card's arrays."""
+    from repro_torch.core.contention import stack_model
+    name = "tau_het" if cluster.is_heterogeneous else "tau"
+    before = LAUNCHES[name]
+    got = tau.tau_stack(cluster, G, share, compute, Y)
+    C, J, _ = Y.shape
+    assert LAUNCHES[name] == before + (1 if C and J else 0)
+    want = tau.tau_stack(cluster, G, share, compute, Y, device="cpu")
+    for w, g, dtype in zip(want, got, (np.int64, np.int64, np.float64)):
+        assert g.dtype == dtype and g.shape == (C, J)
+        assert np.array_equal(w, g)
+    model = stack_model(cluster, G, share, compute, Y)
+    assert np.array_equal(model.p, got[0])
+    assert np.array_equal((Y > 0).sum(axis=2), got[1])
+    assert np.array_equal(model.tau, got[2])
+    if C and J:
+        dev = torch.device("cuda")
+        args = (_on(dev, Y, torch.int64), _on(dev, G, torch.int64),
+                _on(dev, share, torch.float64),
+                _on(dev, compute, torch.float64))
+        kw = dict(xi1=cluster.xi1, xi2=cluster.xi2, alpha=cluster.alpha,
+                  b_intra=cluster.b_intra)
+        if cluster.is_heterogeneous:
+            ct = tau.cluster_tensors(cluster, dev)
+            ref = tau.tau_stack_het(*args, ct["speed_floor"], ct["uplink_sh"],
+                                    ct["uplink_iso"], **kw)
+        else:
+            ref = tau.tau_stack_hom(*args, b_inter=cluster.b_inter,
+                                    gpu_speed=cluster.gpu_speed, **kw)
+        for r, g in zip(ref, got):
+            assert np.array_equal(r.cpu().numpy(), g)
+    return got
+
+
+def _numpy_stack(rng, cluster, C, J, terms_2d):
+    """A random [C, J, S] stack on ``cluster``'s servers with occupied,
+    straddled and whole entries and [J] or [C, J] terms."""
+    S = cluster.num_servers
+    Y = rng.integers(1, 5, (C, J, S)) * (rng.random((C, J, S)) < 0.15)
+    shape = (C, J) if terms_2d else (J,)
+    return (rng.integers(1, 6, shape), rng.uniform(0.1, 10.0, shape),
+            rng.uniform(1, 5, shape), Y)
+
+
+@pytest.mark.parametrize("hetero", [False, True])
+@pytest.mark.parametrize("terms_2d", [False, True])
+def test_tau_stack_round_trip_equals_wrappers_and_numpy(cuda, hetero,
+                                                        terms_2d):
+    cluster = _cluster(2, hetero)
+    jobs = philly_workload(seed=2, mix=((1, 8), (2, 4), (4, 4), (8, 2),
+                                        (16, 1)))
+    Y, G, share, compute = _stack(cluster, jobs, np.random.default_rng(9),
+                                  64, terms_2d)
+    _tau_equal(cluster, G, share, compute, Y)
+
+
+@pytest.mark.parametrize("hetero", [False, True])
+@pytest.mark.parametrize("terms_2d", [False, True])
+def test_tau_stack_reuses_staging_with_a_stale_tail(cuda, hetero, terms_2d):
+    """Growing then shrinking stacks, so later calls read buffers whose
+    tail holds an earlier, larger stack; the chunked shapes (J = 1025 and
+    2500 rows) among them.  A result is not overwritten by the calls
+    after it."""
+    rng = np.random.default_rng(21 + 2 * hetero + terms_2d)
+    cluster = philly_cluster(32, seed=1, **(HETERO if hetero else {}))
+    shapes = [(2, 5), (64, 161), (16, 1025), (4, 3), (1, 1), (8, 2500),
+              (3, 40), (64, 161), (2, 7)]
+    results = []
+    for C, J in shapes:
+        case = _numpy_stack(rng, cluster, C, J, terms_2d)
+        got = _tau_equal(cluster, *case)
+        results.append(([a.copy() for a in got], got))
+    for kept, got in results:
+        for k, g in zip(kept, got):
+            assert np.array_equal(k, g)
+
+
+@pytest.mark.parametrize("hetero", [False, True])
+@pytest.mark.parametrize("C,J", [(0, 5), (4, 0), (0, 0)])
+def test_tau_stack_empty_stacks_launch_nothing(cuda, hetero, C, J):
+    cluster = _cluster(3, hetero)
+    for terms_2d in (False, True):
+        case = _numpy_stack(np.random.default_rng(C + J), cluster, C, J,
+                            terms_2d)
+        _tau_equal(cluster, *case)
+
+
+def test_tau_stack_interleaved_with_pick_orders(cuda):
+    """tau_stack and pick_orders called in turn, each over its own pinned
+    staging: every result equals the CPU path's."""
+    cluster = philly_cluster(20, seed=1)
+    job = philly_workload(seed=1)[7]
+    rng = np.random.default_rng(22)
+    before = dict(LAUNCHES)
+    for i, (C, J, nw) in enumerate([(64, 161, 64), (1, 9, 8), (8, 300, 300),
+                                    (64, 161, 3)]):
+        stack = _numpy_stack(rng, cluster, C, J, terms_2d=bool(i % 2))
+        _tau_equal(cluster, *stack)
+        case = _pick_case(rng, cluster.num_gpus, nw)
+        got = placement.pick_orders(cluster, *case, job)
+        want = placement.pick_orders(cluster, *case, job, device="cpu")
+        for w, g in zip(want, got):
+            assert w.dtype == g.dtype and np.array_equal(w, g)
+    assert LAUNCHES["pool"] == before["pool"] + 4
+
+
 def test_cuda_tensor_never_takes_the_plain_path(cuda):
     """A CUDA tensor launches the kernel (counted) or raises."""
     bad = torch.zeros((2, 3), dtype=torch.float32, device=cuda)

@@ -9,7 +9,8 @@ tolerance:
   * ``tau_stack`` (CPU: the plain PyTorch versions of the tau kernels)
     against the reference's Pallas kernel in x64 interpret mode and its
     NumPy ``evaluate_many``, homogeneous and heterogeneous, [J] and
-    [C, J] terms;
+    [C, J] terms; the packed layout of its card path, and that path's
+    call site driven on the CPU with a stand-in for the C call;
   * ``pick_orders`` / ``score_probes`` against the reference's Pallas
     path (``use_kernel=True``, dispatch threshold forced to 0) and its
     NumPy fallback, fuzzed over random clock states and on the ranking's
@@ -20,6 +21,7 @@ tolerance:
 ``tests/test_torch_gpu.py`` holds each CUDA kernel against its plain
 version on the card.
 """
+import ctypes
 import dataclasses
 
 import jax
@@ -139,6 +141,169 @@ class TestTauStack:
         with pytest.raises(ValueError, match="contiguous"):
             tau.tau_stack_hom(Y.transpose(0, 2).contiguous().transpose(0, 2),
                               G, f64, f64, **kw)
+
+
+def _tau_arrays(rng, C, J, S, terms_2d):
+    """(G, share, compute, Y) at random, with [J] or [C, J] terms."""
+    shape = (C, J) if terms_2d else (J,)
+    Y = rng.integers(1, 5, (C, J, S)) * (rng.random((C, J, S)) < 0.2)
+    return (rng.integers(1, 6, shape), rng.uniform(0.1, 10.0, shape),
+            rng.uniform(1, 5, shape), Y)
+
+
+def _words_at(ptr, n):
+    """The n int64 words at address ``ptr`` as a NumPy array (no copy)."""
+    return np.ctypeslib.as_array((ctypes.c_int64 * n).from_address(ptr))
+
+
+def _stand_in(name):
+    """A Python stand-in for ``tau_step_hom`` / ``tau_step_het`` of
+    ``csrc/tau.cu`` over CPU buffers: the copy up, the plain version over
+    the words at the offsets it is handed, the outputs written one after
+    the other and copied back, as the C call does them; the device's
+    output words are overwritten after the copy, so a host pointer taken
+    for a device one shows."""
+    hetero = name == "tau_step_het"
+
+    def step(host_in, dev_in, n_in, g, sh, cp, *rest):
+        if hetero:
+            *servers, dev_out, host_out, C, J, S, stride, xi1, xi2, alpha, \
+                b_intra, _ = rest
+        else:
+            dev_out, host_out, C, J, S, stride, xi1, xi2, alpha, b_inter, \
+                b_intra, gpu_speed, _ = rest
+        _words_at(dev_in, n_in)[:] = _words_at(host_in, n_in)
+        w = torch.from_numpy(_words_at(dev_in, n_in))
+        f = w.view(torch.float64)
+        shape, T = ((C, J), C * J) if stride else ((J,), J)
+        args = (w[:C * J * S].view(C, J, S), w[g:g + T].view(shape),
+                f[sh:sh + T].view(shape), f[cp:cp + T].view(shape))
+        if hetero:
+            terms = [torch.from_numpy(_words_at(ptr, S).view(np.float64))
+                     for ptr in servers]
+            outs = tau.tau_stack_het_plain(*args, *terms, xi1=xi1, xi2=xi2,
+                                           alpha=alpha, b_intra=b_intra)
+        else:
+            outs = tau.tau_stack_hom_plain(*args, xi1=xi1, xi2=xi2,
+                                           alpha=alpha, b_inter=b_inter,
+                                           b_intra=b_intra,
+                                           gpu_speed=gpu_speed)
+        out = _words_at(dev_out, 3 * C * J)
+        for i, o in enumerate(outs):
+            out[i * C * J:(i + 1) * C * J] = o.reshape(-1).numpy().view(
+                np.int64)
+        _words_at(host_out, 3 * C * J)[:] = out
+        out[:] = -1          # device words, which the host never reads
+        return 0
+
+    return step
+
+
+class TestTauRoundTrip:
+    """The card path of ``tau_stack``: its packed layout, and its call
+    site over CPU buffers with a stand-in for the C call."""
+
+    @pytest.mark.parametrize("terms_2d", [False, True])
+    @pytest.mark.parametrize("C,J,S", [(1, 1, 1), (3, 5, 7), (64, 161, 20),
+                                       (2, 1025, 32), (5, 3, 1), (0, 4, 3)])
+    def test_offsets_are_16_byte_aligned_and_disjoint(self, C, J, S,
+                                                      terms_2d):
+        g, sh, cp, n = tau.tau_words(C, J, S, terms_2d)
+        T = C * J if terms_2d else J
+        for off in (g, sh, cp):
+            assert (8 * off) % 16 == 0
+        assert C * J * S <= g and g + T <= sh and sh + T <= cp
+        assert n == cp + T and n - C * J * S - 3 * T <= 3
+
+    @pytest.mark.parametrize("terms_2d", [False, True])
+    @pytest.mark.parametrize("C,J,S", [(3, 5, 7), (64, 161, 20), (1, 1, 1)])
+    def test_pack_then_unpack_gives_each_input_back(self, C, J, S,
+                                                    terms_2d):
+        rng = np.random.default_rng(C * J + S)
+        G, share, compute, Y = _tau_arrays(rng, C, J, S, terms_2d)
+        special = np.array([-0.0, np.inf, 5e-324])
+        share.reshape(-1)[:3] = special[:share.size]
+        g, sh, cp, n = tau.tau_words(C, J, S, terms_2d)
+        words = rng.integers(-2**62, 2**62, n + 9)       # a stale buffer
+        assert tau.pack_stack(words, Y, G, share, compute) == n
+        T, f = G.size, words.view(np.float64)
+        assert np.array_equal(words[:Y.size].reshape(Y.shape), Y)
+        assert np.array_equal(words[g:g + T].reshape(G.shape), G)
+        for off, a in ((sh, share), (cp, compute)):
+            assert np.array_equal(f[off:off + T].reshape(a.shape).view(
+                np.int64), a.view(np.int64))
+
+    @pytest.mark.parametrize("hetero", [False, True])
+    def test_cpu_tau_stack_runs_the_plain_versions(self, hetero):
+        """On the CPU, tau_stack builds no staging, launches nothing and
+        gives the plain versions' bits."""
+        ref_cluster, ref_jobs, stack = _tau_case(4, hetero)
+        cluster, _ = _carry(ref_cluster, ref_jobs)
+        G, share, compute = ref_job_terms(ref_jobs)
+        staged, before = tau._staging.cache_info().currsize, launch_counts()
+        got = tau.tau_stack(cluster, G, share, compute, stack, device="cpu")
+        assert launch_counts() == before
+        assert tau._staging.cache_info().currsize == staged
+        args = (torch.from_numpy(stack), torch.from_numpy(G),
+                torch.from_numpy(share), torch.from_numpy(compute))
+        kw = dict(xi1=cluster.xi1, xi2=cluster.xi2, alpha=cluster.alpha,
+                  b_intra=cluster.b_intra)
+        if hetero:
+            ct = tau.cluster_tensors(cluster, torch.device("cpu"))
+            want = tau.tau_stack_het_plain(*args, ct["speed_floor"],
+                                           ct["uplink_sh"], ct["uplink_iso"],
+                                           **kw)
+        else:
+            want = tau.tau_stack_hom_plain(*args, b_inter=cluster.b_inter,
+                                           gpu_speed=cluster.gpu_speed, **kw)
+        for w, g in zip(want, got):
+            assert g.dtype == w.numpy().dtype
+            assert np.array_equal(w.numpy(), g)
+
+    @pytest.mark.parametrize("hetero", [False, True])
+    @pytest.mark.parametrize("terms_2d", [False, True])
+    def test_call_site_on_a_stand_in(self, hetero, terms_2d, monkeypatch):
+        """The card path's packing, pointers, offsets and copy-out, driven
+        over CPU buffers: growing then shrinking stacks (later calls read
+        a stale tail) equal the CPU path, one launch counted each, and a
+        result is not overwritten by the calls after it."""
+        staging = tau._Staging(torch.device("cpu"))
+        monkeypatch.setattr(tau, "_step_fn", _stand_in)
+        monkeypatch.setattr(tau, "_current", lambda: (0, 0))
+        monkeypatch.setattr(tau, "_staging", lambda index: staging)
+        ref_cluster = ref_philly_cluster(8, seed=2,
+                                         **(HETERO if hetero else {}))
+        cluster, _ = _carry(ref_cluster, [])
+        rng = np.random.default_rng(7 + hetero + 2 * terms_2d)
+        name = "tau_het" if hetero else "tau"
+        kept = []
+        for C, J in [(2, 5), (64, 161), (3, 4), (1, 1), (16, 1025), (2, 9)]:
+            G, share, compute, Y = _tau_arrays(rng, C, J, cluster.num_servers,
+                                               terms_2d)
+            before = launch_counts()[name]
+            got = tau._round_trip(cluster, G, share, compute, Y, False)
+            assert launch_counts()[name] == before + 1
+            want = tau.tau_stack(cluster, G, share, compute, Y, device="cpu")
+            for w, g in zip(want, got):
+                assert g.dtype == w.dtype and g.shape == (C, J)
+                assert np.array_equal(w, g)
+            kept.append((got, [a.copy() for a in got]))
+        for got, copies in kept:
+            for g, c in zip(got, copies):
+                assert np.array_equal(g, c)
+
+    def test_rejects_bad_arrays(self):
+        cluster, _ = _carry(ref_philly_cluster(4, seed=1), [])
+        G, share, compute, Y = _tau_arrays(np.random.default_rng(0), 2, 3,
+                                           cluster.num_servers, False)
+        for bad in ((G, share, compute, Y[0]),
+                    (G, share, compute, Y.astype(np.float64)),
+                    (G[:2], share, compute, Y),
+                    (G.astype(np.float64), share, compute, Y),
+                    (G, share[:2], compute, Y),
+                    (G, share, compute.astype(np.int64), Y)):
+            with pytest.raises(ValueError):
+                tau.tau_stack(cluster, *bad, device="cpu")
 
 
 def _pick_case(seed, hetero):

@@ -276,3 +276,55 @@ def test_a_span_holds_the_profiler_event_of_the_op_inside_it():
     assert len(events) == 1
     e = events[0]
     assert t0 <= e.start_ns() and e.start_ns() + e.duration_ns() <= t1
+
+
+def test_tau_stack_spans_hold_their_three_children_in_order():
+    cluster, jobs = _backlog()
+    _, rec = _recorded(_drain, cluster, jobs)
+    children = {}
+    for i, (name, _, _, p) in enumerate(rec.spans):
+        if p >= 0 and rec.spans[p][0] == "kernel.tau_stack":
+            children.setdefault(p, []).append(name)
+    tops = [i for i, s in enumerate(rec.spans) if s[0] == "kernel.tau_stack"]
+    assert tops and sorted(children) == tops
+    assert all(c == ["tau_stack.h2d", "tau_stack.launch", "tau_stack.d2h"]
+               for c in children.values())
+
+
+def test_regrows_count_the_doublings_of_a_recorded_sequence(monkeypatch):
+    """The stacks a drain and a batched backlog hand tau_stack, reserved
+    in turn on one staging: ``tau.regrows`` counts the calls that grew it
+    (to the larger of the request and twice the buffer), and the others
+    reuse its buffers."""
+    from repro_torch.kernels import tau
+    shapes, tau_stack = [], tau.tau_stack
+
+    def tau_spy(cluster, G, share, compute, Y, device="cuda"):
+        shapes.append((*Y.shape, G.ndim == 2))
+        return tau_stack(cluster, G, share, compute, Y, device=device)
+
+    monkeypatch.setattr(tau, "tau_stack", tau_spy)
+    cluster, jobs = _backlog()
+    _drain(cluster, jobs)
+    _schedule("batched", cluster, jobs)
+    monkeypatch.undo()
+    assert len(shapes) > 10
+    staging = tau._Staging(torch.device("cpu"))
+    caps, grows, reused = [0, 0], 0, 0
+    obs.start()
+    for C, J, S, terms_2d in shapes:
+        need = (tau.tau_words(C, J, S, terms_2d)[3], 3 * C * J)
+        before = (staging.inp, staging.out)
+        inp, out = staging.reserve(*need)
+        grew = False
+        for k in (0, 1):
+            if need[k] > caps[k]:
+                caps[k], grew = max(need[k], 2 * caps[k], 1), True
+        grows += grew
+        if not grew:
+            reused += 1
+            assert (inp, out) == before
+        assert (inp[0].numel(), out[0].numel()) == tuple(caps)
+    rec = obs.stop()
+    assert rec.counters["tau.regrows"] == grows
+    assert grows >= 2 and reused > grows
